@@ -1,0 +1,832 @@
+"""Kernel wrappers: the op surface of the JAX package's `backend/api.py`.
+
+Every op takes limb-major int32 tensors in the interchange layout
+(`[L, B]`, little-endian 16-bit limbs, Montgomery form; the bit pattern of
+the JAX package's uint32 arrays).  A wrapper dispatches on the device of its
+tensor argument:
+
+  * a CPU tensor goes to the op's plain PyTorch version, defined beside it;
+  * a CUDA tensor launches the hand-written kernel (`csrc/*.cu`, built and
+    bound by `build.py`) and adds one to that kernel's launch counter;
+  * any other device raises.  Nothing falls back.
+
+The kernels (see each source's header for the TPU kernel it replaces, what
+bounds it on the card, and what its design does about that):
+
+  K1 csrc/field_ew.cu   FR_EW / FQ_EW    add, sub, mul, neg
+  K2 csrc/field_inv.cu  FIELD_INV        Fermat inversion
+                        BATCH_INV        chunked batch inversion (fwd + bwd)
+  K3 csrc/ntt.cu        NTT              batched radix-2 NTT
+  K4 csrc/g1.cu         G1_FIXED_BASE    k_i * G from a window table
+                        MSM_BUCKET_SUM   bounded-chunk bucket sums
+                        MSM_WINDOW       sum_b b * B_b per window segment
+
+`fr_prefix_prod` / `fr_suffix_prod` are a log-depth scan over the Fr mul
+kernel, and `g1_add` / `g1_dbl` / `g1_to_affine` chains of field ops, as the
+JAX package's Pallas backend builds them.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..fields import FQ, FR, Q_MOD
+from . import build
+from . import limbs
+
+FR_L = FR.n_limbs
+FQ_L = FQ.n_limbs
+_FR = limbs.FR_LIMBS
+_FQ = limbs.FQ_LIMBS
+_PK = "tokamak_zk_evm_tpu/backend/pallas_kernels.py"
+
+
+class Kernel:
+    """One hand-written kernel: where it lives, what it replaces, and how
+    many times it has been launched."""
+
+    def __init__(self, name: str, source: str, replaces: str):
+        self.name = name
+        self.source = "tokamak_zk_evm_tpu_torch/backend/csrc/" + source
+        self.replaces = replaces
+        self.launches = 0
+
+
+FR_EW = Kernel("fr_ew", "field_ew.cu", f"{_PK}:267")
+FQ_EW = Kernel("fq_ew", "field_ew.cu", f"{_PK}:267")
+FIELD_INV = Kernel("field_inv", "field_inv.cu", f"{_PK}:382")
+BATCH_INV = Kernel("batch_inv", "field_inv.cu", f"{_PK}:448")
+NTT = Kernel("ntt", "ntt.cu", f"{_PK}:640")
+G1_FIXED_BASE = Kernel("g1_fixed_base", "g1.cu", f"{_PK}:961")
+MSM_BUCKET_SUM = Kernel("msm_bucket_sum", "g1.cu", f"{_PK}:1254")
+MSM_WINDOW = Kernel("msm_window_reduce", "g1.cu", f"{_PK}:1408")
+KERNELS = (FR_EW, FQ_EW, FIELD_INV, BATCH_INV, NTT, G1_FIXED_BASE, MSM_BUCKET_SUM,
+           MSM_WINDOW)
+
+
+def reset_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def counts() -> dict[str, int]:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def on_card(*tensors) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors (take
+    the plain version); raise for anything else or a mix."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"no kernel route for devices {sorted(kinds)}")
+
+
+def _check(t: torch.Tensor, rows: int, name: str) -> None:
+    if t.dtype != torch.int32 or t.dim() != 2 or t.shape[0] != rows or not t.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous int32 [{rows}, B] tensor, got "
+                         f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K1: elementwise field ops
+# ---------------------------------------------------------------------------
+
+_OPS = {"add": 0, "sub": 1, "mul": 2, "neg": 3}
+
+
+def _b_index(Ba: int, Bb: int, rep: int, device) -> torch.Tensor:
+    return (torch.arange(Ba, device=device) // rep) % Bb
+
+
+def plain_field_ew(field: int, op: str, a, b=None, rep: int = 1):
+    """Plain version of K1: out[i] = a[i] (op) b[(i / rep) % Bb]."""
+    F = _FR if field == 0 else _FQ
+    x = a.to(torch.int64)
+    if op == "neg":
+        return limbs.neg(F, x).to(torch.int32)
+    y = b.to(torch.int64)
+    if y.shape[1] != x.shape[1]:
+        y = y[:, _b_index(x.shape[1], y.shape[1], rep, y.device)]
+    fn = {"add": limbs.add, "sub": limbs.sub, "mul": limbs.mul}[op]
+    return fn(F, x, y).to(torch.int32)
+
+
+def _field_ew(field: int, op: str, a, b=None, rep: int = 1):
+    L = FR_L if field == 0 else FQ_L
+    _check(a, L, "a")
+    if b is not None:
+        _check(b, L, "b")
+        if rep < 1:
+            raise ValueError("rep must be >= 1")
+    if not (on_card(a) if b is None else on_card(a, b)):
+        return plain_field_ew(field, op, a, b, rep)
+    out = torch.empty_like(a)
+    Bb = a.shape[1] if b is None else b.shape[1]
+    build.call("field_ew", "tzk_field_ew", field, _OPS[op], _ptr(a), _ptr(b), _ptr(out),
+               a.shape[1], Bb, rep, _stream(a))
+    (FR_EW if field == 0 else FQ_EW).launches += 1
+    return out
+
+
+def fr_add(a, b, rep=1):
+    return _field_ew(0, "add", a, b, rep)
+
+
+def fr_sub(a, b, rep=1):
+    return _field_ew(0, "sub", a, b, rep)
+
+
+def fr_mul(a, b, rep=1):
+    return _field_ew(0, "mul", a, b, rep)
+
+
+def fr_neg(a):
+    return _field_ew(0, "neg", a)
+
+
+def fq_add(a, b, rep=1):
+    return _field_ew(1, "add", a, b, rep)
+
+
+def fq_sub(a, b, rep=1):
+    return _field_ew(1, "sub", a, b, rep)
+
+
+def fq_mul(a, b, rep=1):
+    return _field_ew(1, "mul", a, b, rep)
+
+
+def fq_neg(a):
+    return _field_ew(1, "neg", a)
+
+
+# ---------------------------------------------------------------------------
+# K2: inversion
+# ---------------------------------------------------------------------------
+
+BINV_CHUNK = 16  # elements per thread in the batch-inversion passes
+BINV_DIRECT = 4096  # chunk totals up to this count go to the Fermat kernel
+
+
+def plain_field_inv(field: int, a):
+    F = _FR if field == 0 else _FQ
+    return limbs.inv(F, a.to(torch.int64)).to(torch.int32)
+
+
+def field_inv(field: int, a):
+    """Per-element Fermat inverse, 0 -> 0."""
+    _check(a, FR_L if field == 0 else FQ_L, "a")
+    if not on_card(a):
+        return plain_field_inv(field, a)
+    out = torch.empty_like(a)
+    build.call("field_inv", "tzk_field_inv", field, _ptr(a), _ptr(out), a.shape[1],
+               _stream(a))
+    FIELD_INV.launches += 1
+    return out
+
+
+def fr_inv(a):
+    return field_inv(0, a)
+
+
+def fq_inv(a):
+    return field_inv(1, a)
+
+
+def plain_batch_inv(field: int, a):
+    """Plain version of K2's batch inversion: the same chunked walk, one
+    vector lane per chunk."""
+    F = _FR if field == 0 else _FQ
+    x = a.to(torch.int64)
+    L, B = x.shape
+    if B == 0:
+        return a.clone()
+    K = BINV_CHUNK
+    nch = -(-B // K)
+    pad = nch * K - B
+    xp = torch.cat([x, x.new_zeros(L, pad)], 1).reshape(L, nch, K)
+    zero = (xp == 0).all(0)  # [nch, K]
+    one = F.one(x.device).expand(L, nch)
+    acc = one.clone()
+    pre = []
+    for k in range(K):
+        pre.append(acc)
+        prod = limbs.mul(F, acc, xp[:, :, k])
+        acc = torch.where(zero[None, :, k], acc, prod)
+    inv = limbs.inv(F, acc)
+    out = [None] * K
+    for k in range(K - 1, -1, -1):
+        o = limbs.mul(F, pre[k], inv)
+        out[k] = torch.where(zero[None, :, k], torch.zeros_like(o), o)
+        inv = torch.where(zero[None, :, k], inv, limbs.mul(F, inv, xp[:, :, k]))
+    res = torch.stack(out, 2).reshape(L, nch * K)[:, :B]
+    return res.contiguous().to(torch.int32)
+
+
+def batch_inv(field: int, a):
+    """Montgomery batch inversion over the batch axis, 0 -> 0."""
+    _check(a, FR_L if field == 0 else FQ_L, "a")
+    if not on_card(a):
+        return plain_batch_inv(field, a)
+    B = a.shape[1]
+    if B == 0:
+        return a.clone()
+    nch = -(-B // BINV_CHUNK)
+    pre = torch.empty_like(a)
+    tot = torch.empty((a.shape[0], nch), dtype=torch.int32, device=a.device)
+    s = _stream(a)
+    build.call("field_inv", "tzk_batch_inv_fwd", field, _ptr(a), _ptr(pre), _ptr(tot), B,
+               BINV_CHUNK, s)
+    BATCH_INV.launches += 1
+    # chunk totals are products of nonzero elements, so never zero
+    tinv = field_inv(field, tot) if nch <= BINV_DIRECT else batch_inv(field, tot)
+    out = torch.empty_like(a)
+    build.call("field_inv", "tzk_batch_inv_bwd", field, _ptr(a), _ptr(pre), _ptr(tinv),
+               _ptr(out), B, BINV_CHUNK, s)
+    BATCH_INV.launches += 1
+    return out
+
+
+def fr_batch_inv(a):
+    return batch_inv(0, a)
+
+
+def fq_batch_inv(a):
+    return batch_inv(1, a)
+
+
+def _scan_mul(a, reverse: bool):
+    """Inclusive prefix (or suffix) product over the batch axis: Hillis-Steele
+    doubling over the Fr mul op (log2 B launches of K1)."""
+    if reverse:
+        a = torch.flip(a, [1])
+    B = a.shape[1]
+    d = 1
+    while d < B:
+        nxt = a.clone()
+        nxt[:, d:] = fr_mul(a[:, d:].contiguous(), a[:, : B - d].contiguous())
+        a = nxt
+        d *= 2
+    if reverse:
+        a = torch.flip(a, [1])
+    return a.contiguous()
+
+
+def fr_prefix_prod(a):
+    return _scan_mul(a, reverse=False)
+
+
+def fr_suffix_prod(a):
+    return _scan_mul(a, reverse=True)
+
+
+# ---------------------------------------------------------------------------
+# K3: NTT
+# ---------------------------------------------------------------------------
+
+
+def _bitrev(n: int, device) -> torch.Tensor:
+    logn = n.bit_length() - 1
+    j = torch.arange(n, device=device)
+    r = torch.zeros_like(j)
+    for t in range(logn):
+        r |= ((j >> t) & 1) << (logn - 1 - t)
+    return r
+
+
+def plain_ntt(data, pows, scale):
+    """Plain version of K3: bit-reverse, radix-2 DIT stages, final scale."""
+    L, batch, n = data.shape
+    x = data.to(torch.int64)
+    inv_perm = torch.argsort(_bitrev(n, x.device))
+    x = x[:, :, inv_perm]  # x[r(j)] = data[j]
+    w = pows.to(torch.int64)
+    m = 1
+    while m < n:
+        v = x.reshape(L, batch, n // (2 * m), 2, m)
+        lo = v[:, :, :, 0, :].reshape(L, -1)
+        hi = v[:, :, :, 1, :]
+        tw = w[:, :: n // (2 * m)][:, :m]  # [L, m]
+        tw = tw[:, None, None, :].expand(L, batch, n // (2 * m), m).reshape(L, -1)
+        hi = limbs.mul(_FR, hi.reshape(L, -1), tw)
+        a = limbs.add(_FR, lo, hi).reshape(L, batch, n // (2 * m), 1, m)
+        b = limbs.sub(_FR, lo, hi).reshape(L, batch, n // (2 * m), 1, m)
+        x = torch.cat([a, b], 3).reshape(L, batch, n)
+        m *= 2
+    sc = scale.to(torch.int64).reshape(L, 1).expand(L, batch * n)
+    out = limbs.mul(_FR, x.reshape(L, -1), sc)
+    return out.reshape(L, batch, n).to(torch.int32)
+
+
+def fr_ntt(data, pows, scale):
+    """data [16, batch, n] natural order; pows [16, n] twiddles w^j; scale
+    [16, 1] applied to every output.  Returns natural order."""
+    L, batch, n = data.shape
+    if L != FR_L or pows.shape != (FR_L, n) or scale.shape != (FR_L, 1):
+        raise ValueError("fr_ntt: want data [16, batch, n], pows [16, n], scale [16, 1]")
+    if n & (n - 1) or n < 2:
+        raise ValueError(f"fr_ntt: n = {n} is not a power of two >= 2")
+    if not (data.is_contiguous() and pows.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("fr_ntt: inputs must be contiguous")
+    if data.dtype != torch.int32 or pows.dtype != torch.int32 or scale.dtype != torch.int32:
+        raise ValueError("fr_ntt: inputs must be int32")
+    if not on_card(data, pows, scale):
+        return plain_ntt(data, pows, scale)
+    out = torch.empty_like(data)
+    build.call("ntt", "tzk_ntt", _ptr(data), _ptr(out), _ptr(pows), _ptr(scale), batch, n,
+               _stream(data))
+    NTT.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# G1 point formulas over an arithmetic: the plain versions (limbs on int64)
+# and the composed ops g1_add / g1_dbl (field-op wrappers on int32).
+# ---------------------------------------------------------------------------
+
+
+class _Arith:
+    def __init__(self, mul, add, sub, dtype):
+        self._mul, self.add, self.sub, self.dtype = mul, add, sub, dtype
+
+    def muls(self, *pairs):
+        """Independent products in one call."""
+        n = pairs[0][0].shape[1]
+        if n == 0:
+            return tuple(p for p, _ in pairs)
+        a = torch.cat([p for p, _ in pairs], 1)
+        b = torch.cat([q for _, q in pairs], 1)
+        return self._mul(a.contiguous(), b.contiguous()).split(n, 1)
+
+    def one(self, n, device):
+        return _FQ.one(device).expand(FQ_L, n).to(self.dtype).contiguous()
+
+
+_PLAIN = _Arith(lambda a, b: limbs.mul(_FQ, a, b), lambda a, b: limbs.add(_FQ, a, b),
+                lambda a, b: limbs.sub(_FQ, a, b), torch.int64)
+_OPS_FQ = _Arith(lambda a, b: fq_mul(a, b), lambda a, b: fq_add(a.contiguous(), b.contiguous()),
+                 lambda a, b: fq_sub(a.contiguous(), b.contiguous()), torch.int32)
+
+
+def _sel(mask, a, b):
+    return torch.where(mask[None, :], a, b)
+
+
+def _is_zero(v):
+    return (v == 0).all(0)
+
+
+def _inf(ar, n, device):
+    one = ar.one(n, device)
+    return (one, one, torch.zeros_like(one))
+
+
+def jac_dbl(ar, p):
+    """dbl-2009-l (Z3 = 2 Y Z: Y = 0 or Z = 0 gives infinity)."""
+    X, Y, Z = p
+    A, Bq = ar.muls((X, X), (Y, Y))
+    (C,) = ar.muls((Bq, Bq))
+    t = ar.add(X, Bq)
+    (t,) = ar.muls((t, t))
+    D = ar.sub(ar.sub(t, A), C)
+    D = ar.add(D, D)
+    E = ar.add(ar.add(A, A), A)
+    Fv, YZ = ar.muls((E, E), (Y, Z))
+    X3 = ar.sub(Fv, ar.add(D, D))
+    C8 = ar.add(C, C)
+    C8 = ar.add(C8, C8)
+    C8 = ar.add(C8, C8)
+    (t,) = ar.muls((E, ar.sub(D, X3)))
+    return X3, ar.sub(t, C8), ar.add(YZ, YZ)
+
+
+def _finish_add(ar, p, q, r, H, R, pinf, qinf):
+    """Apply the equal / opposite / infinity cases to a generic add r."""
+    X3, Y3, Z3 = r
+    hz, rz = _is_zero(H), _is_zero(R)
+    live = ~pinf & ~qinf
+    dbl = hz & rz & live
+    if bool(dbl.any()):
+        idx = torch.nonzero(dbl).squeeze(1)
+        D = jac_dbl(ar, tuple(c[:, idx] for c in p))
+        X3, Y3, Z3 = (c.clone() for c in (X3, Y3, Z3))
+        for c, d in zip((X3, Y3, Z3), D):
+            c[:, idx] = d
+    ix, iy, iz = _inf(ar, X3.shape[1], X3.device)
+    cancel = hz & ~rz & live
+    X3, Y3, Z3 = _sel(cancel, ix, X3), _sel(cancel, iy, Y3), _sel(cancel, iz, Z3)
+    X3, Y3, Z3 = (_sel(qinf, pc, c) for pc, c in zip(p, (X3, Y3, Z3)))
+    X3, Y3, Z3 = (_sel(pinf, qc, c) for qc, c in zip(q, (X3, Y3, Z3)))
+    return X3, Y3, Z3
+
+
+def jac_add(ar, p, q):
+    """Complete jacobian add, lane by lane."""
+    X1, Y1, Z1 = p
+    X2, Y2, Z2 = q
+    Z1Z1, Z2Z2 = ar.muls((Z1, Z1), (Z2, Z2))
+    U1, U2, t2, t1 = ar.muls((X1, Z2Z2), (X2, Z1Z1), (Z2, Z2Z2), (Z1, Z1Z1))
+    S1, S2 = ar.muls((Y1, t2), (Y2, t1))
+    H = ar.sub(U2, U1)
+    R = ar.sub(S2, S1)
+    HH, RR, Z1Z2 = ar.muls((H, H), (R, R), (Z1, Z2))
+    HHH, V, Z3 = ar.muls((H, HH), (U1, HH), (Z1Z2, H))
+    X3 = ar.sub(ar.sub(RR, HHH), ar.add(V, V))
+    Rt, S1H = ar.muls((R, ar.sub(V, X3)), (S1, HHH))
+    r = (X3, ar.sub(Rt, S1H), Z3)
+    return _finish_add(ar, p, q, r, H, R, _is_zero(Z1), _is_zero(Z2))
+
+
+def mixed_add(ar, p, qx, qy):
+    """Complete add of jacobian p and finite affine (qx, qy)."""
+    X1, Y1, Z1 = p
+    (Z1Z1,) = ar.muls((Z1, Z1))
+    U2, t = ar.muls((qx, Z1Z1), (Z1, Z1Z1))
+    (S2,) = ar.muls((qy, t))
+    H = ar.sub(U2, X1)
+    R = ar.sub(S2, Y1)
+    HH, RR = ar.muls((H, H), (R, R))
+    HHH, V, Z3 = ar.muls((H, HH), (X1, HH), (Z1, H))
+    X3 = ar.sub(ar.sub(RR, HHH), ar.add(V, V))
+    Rt, YH = ar.muls((R, ar.sub(V, X3)), (Y1, HHH))
+    r = (X3, ar.sub(Rt, YH), Z3)
+    q = (qx, qy, ar.one(qx.shape[1], qx.device))
+    none = torch.zeros_like(_is_zero(Z1))
+    return _finish_add(ar, p, q, r, H, R, _is_zero(Z1), none)
+
+
+def _expand_rep(q, Ba, rep):
+    Bb = q[0].shape[1]
+    if Bb == Ba:
+        return q
+    idx = _b_index(Ba, Bb, rep, q[0].device)
+    return tuple(c[:, idx].contiguous() for c in q)
+
+
+def g1_add(p, q, rep=1):
+    """Complete jacobian add of [24, B] point triples (b broadcast by rep).
+
+    A chain of K1 launches, kept for the op name: the main path never calls
+    it (K4's kernels add points with g1.cu's own device formulas), so on the
+    card it is neither run nor checked by `chip_smoke.py`."""
+    q = _expand_rep(q, p[0].shape[1], rep)
+    return jac_add(_OPS_FQ, p, q)
+
+
+def g1_dbl(p):
+    """Jacobian doubling of [24, B] point triples; off the main path, like
+    `g1_add`."""
+    X, Y, Z = jac_dbl(_OPS_FQ, p)
+    ix, iy, iz = _inf(_OPS_FQ, X.shape[1], X.device)
+    inf = _is_zero(p[2])
+    return _sel(inf, ix, X), _sel(inf, iy, Y), _sel(inf, iz, Z)
+
+
+def g1_to_affine(p):
+    """Jacobian -> (x, y, inf) by one Fq batch inversion of Z (infinity gives
+    x = y = 0, inf = 1)."""
+    X, Y, Z = p
+    zi = fq_batch_inv(Z)
+    zi2 = fq_mul(zi, zi)
+    x = fq_mul(X, zi2)
+    y = fq_mul(Y, fq_mul(zi2, zi))
+    return x, y, _is_zero(Z).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# K4: fixed-base scalar multiplication
+# ---------------------------------------------------------------------------
+
+
+def _fq_limbs(v: int) -> list[int]:
+    return FQ.to_limbs(FQ.to_mont(v))
+
+
+@functools.lru_cache(maxsize=4)
+def _fixed_base_table_host(gx: int, gy: int):
+    """32 x 256 window table: entry wi*256 + d is d * 2^(8 wi) * G, affine
+    Montgomery, as [24, 8192] x, y and [8192] infinity flags."""
+    from ..host.curve import G1
+
+    W, NWIN, TBL = 8, 32, 256
+    tx = np.zeros((FQ_L, NWIN * TBL), np.int32)
+    ty = np.zeros((FQ_L, NWIN * TBL), np.int32)
+    tinf = np.ones(NWIN * TBL, np.int32)
+    base = G1.from_affine((gx, gy))
+    for wi in range(NWIN):
+        acc = G1.infinity
+        pts = []
+        for _ in range(1, TBL):
+            acc = G1.add(acc, base)
+            pts.append(acc)
+        run, pre = 1, []
+        for p in pts:
+            pre.append(run)
+            run = run * p[2] % Q_MOD
+        inv = pow(run, -1, Q_MOD)
+        for d in range(TBL - 1, 0, -1):
+            p = pts[d - 1]
+            zi = pre[d - 1] * inv % Q_MOD
+            inv = inv * p[2] % Q_MOD
+            zi2 = zi * zi % Q_MOD
+            e = wi * TBL + d
+            tx[:, e] = _fq_limbs(p[0] * zi2 % Q_MOD)
+            ty[:, e] = _fq_limbs(p[1] * zi2 % Q_MOD * zi % Q_MOD)
+            tinf[e] = 0
+        for _ in range(W):
+            base = G1.double(base)
+    return tx, ty, tinf
+
+
+def fixed_base_table(gx: int, gy: int, device):
+    tx, ty, tinf = _fixed_base_table_host(gx, gy)
+    return (torch.from_numpy(tx).to(device), torch.from_numpy(ty).to(device),
+            torch.from_numpy(tinf).to(device))
+
+
+def plain_g1_fixed_base(scalars, tx, ty, tinf):
+    """Plain version of the fixed-base kernel: 32 windows, one lane per
+    scalar, complete mixed adds of table points."""
+    B = scalars.shape[1]
+    s = scalars.to(torch.int64)
+    acc = _inf(_PLAIN, B, s.device)
+    txl, tyl = tx.to(torch.int64), ty.to(torch.int64)
+    for wi in range(32):
+        d = (s[wi // 2] >> (8 * (wi % 2))) & 0xFF
+        e = wi * 256 + d
+        use = (d != 0) & (tinf[e] == 0)
+        if not bool(use.any()):
+            continue
+        nxt = mixed_add(_PLAIN, acc, txl[:, e], tyl[:, e])
+        acc = tuple(_sel(use, n, a) for n, a in zip(nxt, acc))
+    return tuple(c.to(torch.int32) for c in acc)
+
+
+def g1_fixed_base(scalars, tx, ty, tinf):
+    """out[i] = k_i * G (jacobian [24, B] x 3) for canonical scalars [16, B]
+    and the window table of G (`fixed_base_table`)."""
+    _check(scalars, FR_L, "scalars")
+    _check(tx, FQ_L, "tx")
+    _check(ty, FQ_L, "ty")
+    if not on_card(scalars, tx, ty, tinf):
+        return plain_g1_fixed_base(scalars, tx, ty, tinf)
+    B = scalars.shape[1]
+    out = [torch.empty((FQ_L, B), dtype=torch.int32, device=scalars.device) for _ in range(3)]
+    build.call("g1", "tzk_g1_fixed_base", _ptr(scalars), _ptr(tx), _ptr(ty), _ptr(tinf),
+               *[_ptr(o) for o in out], B, _stream(scalars))
+    G1_FIXED_BASE.launches += 1
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# K4: MSM device stages
+# ---------------------------------------------------------------------------
+
+
+def _segmented_sum(ar, pts, counts):
+    """Lanes grouped by segment (segment k owns counts[k] consecutive lanes)
+    -> one jacobian sum per segment (infinity when empty): pairwise levels
+    over the ranks inside each segment, so the adds total about one per
+    lane."""
+    dev = pts[0].device
+    n_seg = counts.shape[0]
+    first = torch.cumsum(counts, 0) - counts
+    seg_id = torch.repeat_interleave(torch.arange(n_seg, device=dev), counts)
+    rank = torch.arange(seg_id.shape[0], device=dev) - first[seg_id]
+    length = counts[seg_id]
+    pts = [c.clone() for c in pts]
+    maxlen = int(counts.max()) if n_seg else 0
+    step = 1
+    while step < maxlen:
+        i = torch.nonzero(((rank % (2 * step)) == 0) & (rank + step < length)).squeeze(1)
+        s = jac_add(ar, tuple(c[:, i] for c in pts), tuple(c[:, i + step] for c in pts))
+        for c, v in zip(pts, s):
+            c[:, i] = v
+        step *= 2
+    out = [c.clone() for c in _inf(ar, n_seg, dev)]
+    has = torch.nonzero(counts > 0).squeeze(1)
+    for o, c in zip(out, pts):
+        o[:, has] = c[:, first[has]]
+    return tuple(out)
+
+
+def plain_msm_bucket_sum(mode, px, py, p3, idx, start, length):
+    """Plain version of the bucket-sum kernel: chunk c sums entries
+    [start[c], start[c] + length[c])."""
+    dev = px.device
+    nch = start.shape[0]
+    chunk = torch.repeat_interleave(torch.arange(nch, device=dev), length)
+    first = torch.cumsum(length, 0) - length
+    ent = start[chunk] + torch.arange(chunk.shape[0], device=dev) - first[chunk]
+    if mode == 0:
+        src = idx[ent]
+        X = px[:, src].to(torch.int64)
+        Y = py[:, src].to(torch.int64)
+        one = _PLAIN.one(X.shape[1], dev)
+        Z = torch.where((p3[src] == 0)[None, :], one, torch.zeros_like(one))
+    else:
+        X, Y, Z = (c[:, ent].to(torch.int64) for c in (px, py, p3))
+    out = _segmented_sum(_PLAIN, (X, Y, Z), length)
+    return tuple(c.contiguous().to(torch.int32) for c in out)
+
+
+def msm_bucket_sum(mode, px, py, p3, idx, start, length):
+    """Sum chunks of points: mode 0 gathers affine points idx[e] of
+    (px, py, pinf = p3), mode 1 reads jacobian points e of (px, py, pz = p3).
+    start, length: int64 [nchunks].  -> jacobian [24, nchunks] x 3."""
+    _check(px, FQ_L, "px")
+    _check(py, FQ_L, "py")
+    if not on_card(px, py, p3, start, length):
+        return plain_msm_bucket_sum(mode, px, py, p3, idx, start, length)
+    nch = start.shape[0]
+    out = [torch.empty((FQ_L, nch), dtype=torch.int32, device=px.device) for _ in range(3)]
+    if nch == 0:
+        return tuple(out)
+    build.call("g1", "tzk_msm_bucket_sum", mode, _ptr(px), _ptr(py), _ptr(p3.contiguous()),
+               _ptr(idx), _ptr(start), _ptr(length), nch, px.shape[1],
+               *[_ptr(o) for o in out], _stream(px))
+    MSM_BUCKET_SUM.launches += 1
+    return tuple(out)
+
+
+def plain_msm_window_reduce(bx, by, bz, nwin, nb, seg):
+    """Plain version of the window-reduce kernel: segment (w, s) ->
+    sum over its buckets of b * B_b, b the bucket's digit."""
+    dev = bx.device
+    weight = torch.arange(nb, device=dev).repeat(nwin)
+    live = torch.nonzero((bz != 0).any(0) & (weight > 0)).squeeze(1)
+    pts = tuple(c[:, live].to(torch.int64) for c in (bx, by, bz))
+    w = weight[live]
+    acc = [c.clone() for c in _inf(_PLAIN, live.shape[0], dev)]
+    for bit in range(max(nb - 1, 1).bit_length() - 1, -1, -1):
+        d = torch.nonzero((w >> (bit + 1)) != 0).squeeze(1)
+        for c, v in zip(acc, jac_dbl(_PLAIN, tuple(c[:, d] for c in acc))):
+            c[:, d] = v
+        a = torch.nonzero((w >> bit) & 1).squeeze(1)
+        s = jac_add(_PLAIN, tuple(c[:, a] for c in acc), tuple(c[:, a] for c in pts))
+        for c, v in zip(acc, s):
+            c[:, a] = v
+    counts = torch.bincount(live // seg, minlength=nwin * (nb // seg))
+    out = _segmented_sum(_PLAIN, acc, counts)
+    return tuple(c.contiguous().to(torch.int32) for c in out)
+
+
+def msm_window_reduce(bx, by, bz, nwin, nb, seg):
+    """Dense buckets [24, nwin * nb] (bucket 0 empty) -> per segment of `seg`
+    buckets, sum b * B_b: jacobian [24, nwin * nb / seg] x 3."""
+    for t, n in ((bx, "bx"), (by, "by"), (bz, "bz")):
+        _check(t, FQ_L, n)
+    if nb % seg:
+        raise ValueError("seg must divide the bucket count")
+    if not on_card(bx, by, bz):
+        return plain_msm_window_reduce(bx, by, bz, nwin, nb, seg)
+    n_out = nwin * (nb // seg)
+    out = [torch.empty((FQ_L, n_out), dtype=torch.int32, device=bx.device) for _ in range(3)]
+    build.call("g1", "tzk_msm_window_reduce", _ptr(bx), _ptr(by), _ptr(bz), nwin, nb, seg,
+               *[_ptr(o) for o in out], _stream(bx))
+    MSM_WINDOW.launches += 1
+    return tuple(out)
+
+
+MSM_CHUNK = 32  # points per thread in one bucket-sum pass
+MSM_SEG = 64  # buckets per thread in the window reduce
+
+
+def msm_window_bits(n: int) -> int:
+    return max(4, min(16, n.bit_length() - 3))
+
+
+def _digits(scalars, c: int, nwin: int):
+    """Canonical [16, N] limbs -> [nwin, N] c-bit digits (int64)."""
+    s = scalars.to(torch.int64)
+    s = torch.cat([s, torch.zeros_like(s[:2])])  # room for the top window
+    rows = []
+    for w in range(nwin):
+        o = w * c
+        li, sh = o // 16, o % 16
+        v = (s[li] >> sh) | (s[li + 1] << (16 - sh)) | (s[li + 2] << (32 - sh))
+        rows.append(v & ((1 << c) - 1))
+    return torch.stack(rows)
+
+
+def chunk_segments(counts):
+    """Cut consecutive segments (segment k holds counts[k] >= 1 entries)
+    into chunks of at most MSM_CHUNK entries -> (start, length, per-segment
+    chunk counts), int64."""
+    dev = counts.device
+    nch = (counts + MSM_CHUNK - 1) // MSM_CHUNK
+    total = int(nch.sum())
+    seg_of = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev), nch)
+    off = torch.arange(total, device=dev) - (torch.cumsum(nch, 0) - nch)[seg_of]
+    seg_start = torch.cumsum(counts, 0) - counts
+    start = (seg_start[seg_of] + off * MSM_CHUNK).contiguous()
+    length = torch.clamp(counts[seg_of] - off * MSM_CHUNK, max=MSM_CHUNK).contiguous()
+    return start, length, nch
+
+
+def segment_sums(bucket_sum, mode, px, py, p3, idx, counts):
+    """One jacobian sum per segment of consecutive entries: bounded chunks
+    per pass, then the chunk partials again, until every segment is one
+    point."""
+    while True:
+        start, length, nch = chunk_segments(counts)
+        px, py, p3 = bucket_sum(mode, px, py, p3, idx, start, length)
+        if start.shape[0] == counts.shape[0]:
+            return px, py, p3
+        mode, idx, counts = 1, None, nch
+
+
+def msm_plan(scalars, pinf):
+    """Window size, digits and the sorted (window, bucket) entries of an MSM:
+    -> (c, nwin, point index per entry, bucket key per run, run lengths).
+    Tensor ops on the input's device, as the JAX package leaves its digit
+    sort to XLA."""
+    dev = scalars.device
+    N = pinf.shape[0]
+    c = msm_window_bits(N)
+    nwin = -(-255 // c)
+    nb = 1 << c
+    digits = _digits(scalars, c, nwin)
+    live = (digits != 0) & (pinf.to(torch.int64) == 0)[None, :]
+    keys = (torch.arange(nwin, device=dev)[:, None] * nb + digits).reshape(-1)
+    ent = torch.nonzero(live.reshape(-1)).squeeze(1)
+    k = keys[ent]
+    order = torch.argsort(k, stable=True)
+    pidx = (ent[order] % N).contiguous()
+    bucket, counts = torch.unique_consecutive(k[order], return_counts=True)
+    return c, nwin, pidx, bucket, counts
+
+
+def _msm_windows(scalars, px, py, pinf, bucket_sum, window_reduce):
+    dev = px.device
+    c, nwin, pidx, bucket, counts = msm_plan(scalars, pinf)
+    nb = 1 << c
+    if pidx.numel() == 0:
+        return (_inf(_OPS_FQ, nwin, dev), c)
+    bx, by, bz = segment_sums(bucket_sum, 0, px.contiguous(), py.contiguous(),
+                              pinf.to(torch.int32).contiguous(), pidx, counts)
+    dense = [t.clone() for t in _inf(_OPS_FQ, nwin * nb, dev)]
+    for d, v in zip(dense, (bx, by, bz)):
+        d[:, bucket] = v
+    seg = min(MSM_SEG, nb)
+    sx, sy, sz = window_reduce(*dense, nwin, nb, seg)
+    per = torch.full((nwin,), nb // seg, dtype=torch.int64, device=dev)
+    return (segment_sums(bucket_sum, 1, sx, sy, sz, None, per), c)
+
+
+def g1_msm_start(scalars, px, py, pinf):
+    """Device part of sum_i k_i P_i (Pippenger): canonical scalars [16, N],
+    affine Montgomery points [24, N] x 2 and infinity flags [N].  Returns a
+    handle for `g1_msm_finish`: one jacobian point per c-bit window."""
+    return _msm_windows(scalars, px, py, pinf, msm_bucket_sum, msm_window_reduce)
+
+
+def plain_g1_msm_start(scalars, px, py, pinf):
+    """Plain version of the K4 MSM stages (same plan, plain stages)."""
+    return _msm_windows(scalars, px, py, pinf, plain_msm_bucket_sum,
+                        plain_msm_window_reduce)
+
+
+def _jac_host(X, Y, Z):
+    """One jacobian point from Montgomery limb columns -> host ints."""
+    f = lambda v: FQ.from_mont(FQ.from_limbs(v))  # noqa: E731
+    return f(X), f(Y), f(Z)
+
+
+def g1_msm_finish(handle):
+    """Pull the window sums and combine them on the host:
+    sum_w 2^(c w) W_w by Horner.  -> jacobian [3, 24] int32 rows (CPU)."""
+    from ..host.curve import G1
+
+    (X, Y, Z), c = handle
+    rows = torch.stack([X, Y, Z]).cpu().numpy()  # one pull: [3, 24, nwin]
+    exps, pts = [], []
+    for w in range(rows.shape[2]):
+        Xi, Yi, Zi = _jac_host(rows[0, :, w], rows[1, :, w], rows[2, :, w])
+        if Zi == 0:
+            continue
+        zi = pow(Zi, -1, Q_MOD)
+        zi2 = zi * zi % Q_MOD
+        exps.append(c * w)
+        pts.append((Xi * zi2 % Q_MOD, Yi * zi2 % Q_MOD * zi % Q_MOD))
+    acc = G1.msm_pow2(exps, pts)
+    out = np.array([FQ.to_limbs(FQ.to_mont(v)) for v in acc], dtype=np.int32)
+    return torch.from_numpy(out)
+
+
+def g1_msm(scalars, px, py, pinf):
+    return g1_msm_finish(g1_msm_start(scalars, px, py, pinf))
