@@ -14,15 +14,25 @@ Phases, in order (any mismatch or exception exits non-zero):
      at 16384 x 512 (and a coset round trip); K4 fixed-base and MSM at 2^12
      with repeated points, infinities and zero scalars; the MSM at 2^22
      against the O(1) oracle sum k_i (c_i G) = (sum k_i c_i) G;
+  3b. K5's affine-add pair against its plain versions at 2^20 lanes, exact,
+     with every case planted (P+Q, P+P, P+(-P), inf+Q, P+inf, inf+inf), and
+     a sample of lanes against host curve adds;
   4. the toy proof on the card: its digest must be the pinned one and the
      port's verifier must accept it;
   5. the main path at the synthetic full shape (n=4096, s_max=256,
-     m_i=4096): generate_sigma -> Prover.prove() -> verify_snark(), with every
-     kernel's launch counter set to 0 just before and read just after;
+     m_i=4096) on the default MSM core ("pippenger"): generate_sigma ->
+     Prover.prove() -> preprocess -> verify_snark(), with every kernel's
+     launch counter set to 0 just before and read just after; every kernel
+     of that path must have launched, and K5 not at all;
+  5b. the second MSM core, "affine_tree" (`ops.msm.use_core`): one 2^22-point
+     MSM against the Pippenger and the O(1) oracle, then phase 5's path again
+     on the same CRS (counters set to 0 before, read after): its proof bytes
+     must equal phase 5's, it must verify, and K5 and the batch inversion
+     must have launched while K4's MSM stages did not;
   6. each kernel at the main path's shapes: held against its plain version
-     there (every output of K1, K2, K3, the fixed-base kernel and the window
-     reduce; every 64th chunk of the 2^22-point bucket sum, all of it at
-     2^16), then timed beside the plain version and its bound.
+     there (every output of K1, K2, K3, K5, the fixed-base kernel and the
+     window reduce; every 64th chunk of the 2^22-point bucket sum, all of it
+     at 2^16), then timed beside the plain version and its bound.
 The last three lines are the nvidia-smi line, the kernels JSON and the device
 JSON. The port imports nothing of JAX; neither does this script.
 """
@@ -281,8 +291,68 @@ def msm_oracle_check(torch, np, K, dev, rng, n, plain):
         expect(a == b, f"msm_bucket_sum kernel == plain ({start.shape[0]} chunks)")
 
 
+def planted_affine(torch, np, K, dev, rng, n, mix):
+    """Affine operand batches (x1, y1, x2, y2) [24, n] of points a_i G and
+    b_i G (a_i < b_i < 2^32, so b_i != +-a_i).  mix "all": lane i takes case
+    i % 6 of P+Q, P+P, P+(-P), inf+Q, P+inf, inf+inf ((0, 0) = infinity);
+    mix "add": every lane P+Q."""
+    from tokamak_zk_evm_tpu_torch.host.curve import G1
+
+    tx, ty, tinf = K.fixed_base_table(*G1.gen, dev)
+
+    def points(v):
+        cl = np.zeros((16, n), np.int32)
+        cl[0], cl[1] = v & 0xFFFF, v >> 16
+        x, y, _ = K.g1_to_affine(K.g1_fixed_base(torch.as_tensor(cl, device=dev), tx, ty, tinf))
+        return x, y
+
+    a = rng.integers(1, 1 << 31, size=n, dtype=np.int64)
+    x1, y1 = points(a)
+    x2, y2 = points(a + rng.integers(1, 1 << 20, size=n, dtype=np.int64))
+    if mix == "add":
+        return x1, y1, x2, y2
+    case = torch.arange(n, device=dev) % 6
+    sel = lambda m, u, v: torch.where(m[None, :], u, v)  # noqa: E731
+    zero = torch.zeros_like(x1)
+    x2 = sel((case == 1) | (case == 2), x1, x2)
+    y2 = sel(case == 1, y1, sel(case == 2, K.plain_field_ew(1, "neg", y1), y2))
+    inf1, inf2 = (case == 3) | (case == 5), (case == 4) | (case == 5)
+    return (sel(inf1, zero, x1).contiguous(), sel(inf1, zero, y1).contiguous(),
+            sel(inf2, zero, x2).contiguous(), sel(inf2, zero, y2).contiguous())
+
+
+def check_affine(torch, np, K, dev, n=1 << 20):
+    from tokamak_zk_evm_tpu_torch.fields import FQ
+    from tokamak_zk_evm_tpu_torch.host.curve import G1
+
+    log(f"[3b] K5 aff_pre / aff_post at {n} lanes, every case planted: kernel == plain, exact")
+    x1, y1, x2, y2 = planted_affine(torch, np, K, dev, np.random.default_rng(4), n, "all")
+    den = K.aff_pre(x1, y1, x2, y2)
+    expect(torch.equal(den, K.plain_aff_pre(x1, y1, x2, y2)), "aff_pre kernel == plain")
+    expect(bool((den != 0).any(0).all()), "no slope denominator is zero")
+    dinv = K.fq_batch_inv(den)
+    got = K.aff_post(x1, y1, x2, y2, dinv)
+    want = K.plain_aff_post(x1, y1, x2, y2, dinv)
+    expect(all(torch.equal(g, w) for g, w in zip(got, want)), "aff_post kernel == plain")
+    m = 600  # 100 lanes of each case against host curve adds
+
+    def host(x, y):
+        cols = [c[:, :m].cpu().numpy() for c in (x, y)]
+        out = []
+        for i in range(m):
+            X, Y = (FQ.from_mont(FQ.from_limbs(c[:, i].tolist())) for c in cols)
+            out.append(None if X == Y == 0 else (X, Y))
+        return out
+
+    want = [G1.to_affine(G1.add(G1.from_affine(p), G1.from_affine(q)))
+            for p, q in zip(host(x1, y1), host(x2, y2))]
+    expect(host(*got) == want, f"g1_aff_add_batch == host curve adds on {m} lanes")
+    del x1, y1, x2, y2, den, dinv, got, want
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
-# phases 4 and 5: proofs
+# phases 4, 5 and 5b: proofs
 # ---------------------------------------------------------------------------
 
 
@@ -307,43 +377,56 @@ def prove_toy(np, dev):
     expect(ok is True, "toy proof verifies (port Verifier)")
 
 
-def prove_full(torch, np, K, dev):
-    from tokamak_zk_evm_tpu_torch.models.preprocess import preprocess
-    from tokamak_zk_evm_tpu_torch.models.protocol import Mixer
-    from tokamak_zk_evm_tpu_torch.models.prover import Prover
-    from tokamak_zk_evm_tpu_torch.models.setup import Tau, generate_sigma
-    from tokamak_zk_evm_tpu_torch.models.verifier import Verifier
+def synthetic_fixture():
     from tokamak_zk_evm_tpu_torch.testing.synthetic import build_synthetic
-    from tokamak_zk_evm_tpu_torch.utils import timing
 
     t0 = time.perf_counter()
     fx = build_synthetic()
     p = fx.params
     log(f"  fixture n={p.n} s_max={p.s_max} m_i={p.m_i} m_D={p.m_D} "
         f"placements={len(fx.placements)} built in {time.perf_counter() - t0:.3f} s (host)")
+    return fx
+
+
+def drive(torch, np, K, dev, fx, core, sigma=None):
+    """The main path on MSM core `core`: setup (unless `sigma` is given),
+    Prover init, prove, preprocess, verify; every launch counter set to 0
+    just before and read just after.  -> (sigma, proof bytes, counts)."""
+    from tokamak_zk_evm_tpu_torch.io.artifacts import canonical_proof_bytes
+    from tokamak_zk_evm_tpu_torch.models.preprocess import preprocess
+    from tokamak_zk_evm_tpu_torch.models.protocol import Mixer
+    from tokamak_zk_evm_tpu_torch.models.prover import Prover
+    from tokamak_zk_evm_tpu_torch.models.setup import Tau, generate_sigma
+    from tokamak_zk_evm_tpu_torch.models.verifier import Verifier
+    from tokamak_zk_evm_tpu_torch.ops import msm as TM
+    from tokamak_zk_evm_tpu_torch.utils import timing
+
+    p = fx.params
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     timing.reset()
     K.reset_counts()
     t = {}
-    t0 = time.perf_counter()
-    sigma = generate_sigma(p, Tau.fixed(), fx.library, fx.infos, device=dev)
-    torch.cuda.synchronize()
-    t["setup"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    prover = Prover(p, sigma, fx.library, fx.infos, fx.placements, fx.permutation, fx.instance,
-                    mixer=Mixer.random(np.random.default_rng(3)), device=dev)
-    torch.cuda.synchronize()
-    t["init"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    proof, _ = prover.prove()
-    torch.cuda.synchronize()
-    t["prove"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pre = preprocess(sigma, fx.permutation, fx.instance, p, device=dev)
-    ok = Verifier(p, sigma, pre, fx.instance, proof, rng=np.random.default_rng(7),
-                  device=dev).verify_snark()
-    t["verify"] = time.perf_counter() - t0
+    with TM.use_core(core):
+        if sigma is None:
+            t0 = time.perf_counter()
+            sigma = generate_sigma(p, Tau.fixed(), fx.library, fx.infos, device=dev)
+            torch.cuda.synchronize()
+            t["setup"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prover = Prover(p, sigma, fx.library, fx.infos, fx.placements, fx.permutation,
+                        fx.instance, mixer=Mixer.random(np.random.default_rng(3)), device=dev)
+        torch.cuda.synchronize()
+        t["init"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proof, _ = prover.prove()
+        torch.cuda.synchronize()
+        t["prove"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pre = preprocess(sigma, fx.permutation, fx.instance, p, device=dev)
+        ok = Verifier(p, sigma, pre, fx.instance, proof, rng=np.random.default_rng(7),
+                      device=dev).verify_snark()
+        t["verify"] = time.perf_counter() - t0
     counts = K.counts()
     peak = torch.cuda.max_memory_allocated()
     spans = timing.summarize()["by_name"]
@@ -351,12 +434,42 @@ def prove_full(torch, np, K, dev):
     log("  spans (s): " + json.dumps({k: round(v, 3) for k, v in spans.items()}))
     log("  kernels " + json.dumps(counts))
     log(f"  peak device memory {peak / 2**30:.3f} GiB")
-    expect(ok is True, "full-shape proof verifies (port Verifier)")
-    for name, c in counts.items():
-        expect(c > 0, f"kernel {name} launched {c} times on the main path")
-    del prover, sigma
+    expect(ok is True, f"full-shape proof verifies (port Verifier, MSM core {core})")
+    del prover, pre
     torch.cuda.empty_cache()
-    return counts
+    return sigma, canonical_proof_bytes(proof), counts
+
+
+def expect_launches(counts, ran, idle, path):
+    for name in ran:
+        expect(counts[name] > 0, f"kernel {name} launched {counts[name]} times on the {path}")
+    for name in idle:
+        expect(counts[name] == 0, f"kernel {name} not launched on the {path}")
+
+
+def affine_msm_check(torch, np, K, dev, n=1 << 22):
+    """One n-point MSM through the affine tree == Pippenger == oracle."""
+    from tokamak_zk_evm_tpu_torch.ops import msm as TM
+
+    k, px, py, pinf, want = oracle_inputs(torch, np, K, dev, np.random.default_rng(5), n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with TM.use_core("affine_tree"):
+        got = TM.msm(k, px, py, pinf)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    pip = TM.msm(k, px, py, pinf)
+    pip_secs = time.perf_counter() - t0
+    log(f"  {n}-point MSM: affine_tree {secs:.3f} s (peak {peak / 2**30:.3f} GiB), "
+        f"pippenger {pip_secs:.3f} s")
+    expect(got == want, f"affine_tree MSM of {n} points == (sum k_i c_i) G")
+    expect(got == pip, f"affine_tree MSM of {n} points == pippenger")
+    del k, px, py, pinf
+    torch.cuda.empty_cache()
+    return {"affine_tree_s": round(secs, 4), "affine_tree_peak_gib": round(peak / 2**30, 3),
+            "pippenger_s": round(pip_secs, 4)}
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +483,10 @@ JAC_ADD_MULS = 16
 
 
 def limbs_err(a, b) -> int:
-    """Largest limb difference between two outputs (0 = byte-equal)."""
+    """Largest limb difference between two outputs (tensors or tuples of
+    them; 0 = byte-equal)."""
+    if isinstance(a, tuple):
+        return max(limbs_err(x, y) for x, y in zip(a, b))
     return int((a.long() - b.long()).abs().max())
 
 
@@ -464,9 +580,12 @@ def measure(torch, np, K, dev, counts):
     row(K.FR_EW, "Fr mul 2^23", lambda: K.fr_mul(a, b), lambda: K.plain_field_ew(0, "mul", a, b),
         3 * 64 * n, FR_MUL_OPS * n)
     ms = cuda_ms(torch, lambda: K.fr_neg(a))
+    pms = cuda_ms(torch, lambda: K.plain_field_ew(0, "neg", a), 1)
     b_neg, _ = bound_ms(2 * 64 * n, 0)
-    rows[-1].update({"neg_ms": round(ms, 4), "neg_bound_ms": round(b_neg, 4)})
-    log(f"  {'fr_ew':18s} {'Fr neg 2^23':28s} {ms:10.3f} ms  bound {b_neg:8.4f} ms (bytes)")
+    rows[-1].update({"neg_ms": round(ms, 4), "neg_plain_ms": round(pms, 4),
+                     "neg_bound_ms": round(b_neg, 4)})
+    log(f"  {'fr_ew':18s} {'Fr neg 2^23':28s} {ms:10.3f} ms  plain {pms:10.3f} ms  "
+        f"bound {b_neg:8.4f} ms (bytes)")
     del a, b
     n = 1 << 22  # setup's xy_powers family to affine
     a, b = T(rand_field(np, rng, FQ, n)), T(rand_field(np, rng, FQ, n))
@@ -530,6 +649,22 @@ def measure(torch, np, K, dev, counts):
     k, px, py, pinf = big["inputs"]
     ms = cuda_ms(torch, lambda: K.g1_msm_start(k, px, py, pinf), reps=2)
     log(f"  g1_msm_start (plan + K4 stages) at 2^22 points: {ms:.3f} ms")
+    del big, k, px, py, pinf
+    torch.cuda.empty_cache()
+    # K5 at the affine tree's widest merge level at 2^22 points (wb = 2
+    # windows of 2^21 pairs), every lane a P+Q add: aff_post does its three
+    # products on every lane, the most it does for any lane but a doubling
+    n = 1 << 22
+    x1, y1, x2, y2 = planted_affine(torch, np, K, dev, rng, n, "add")
+    shape = "2^22 lanes, P+Q"
+    row(K.AFF_PRE, shape, lambda: K.aff_pre(x1, y1, x2, y2),
+        lambda: K.plain_aff_pre(x1, y1, x2, y2), 5 * 96 * n, 0)
+    dinv = K.fq_batch_inv(K.aff_pre(x1, y1, x2, y2))
+    row(K.AFF_POST, shape, lambda: K.aff_post(x1, y1, x2, y2, dinv),
+        lambda: K.plain_aff_post(x1, y1, x2, y2, dinv), 7 * 96 * n, 3 * FQ_MUL_OPS * n)
+    ms = cuda_ms(torch, lambda: K.g1_aff_add_batch((x1, y1), (x2, y2)), 3)
+    rows[-1]["g1_aff_add_batch_ms"] = round(ms, 4)
+    log(f"  g1_aff_add_batch (aff_pre + Fq batch inverse + aff_post) {shape}: {ms:.3f} ms")
     return rows
 
 
@@ -570,16 +705,33 @@ def main() -> int:
                     log(f"    {name}: {line.strip()}")
 
     check_kernels(torch, np, K, dev)
+    check_affine(torch, np, K, dev)
 
     log("[4] golden toy proof on the card")
     t0 = time.perf_counter()
     prove_toy(np, dev)
     log(f"    {time.perf_counter() - t0:.3f} s")
 
-    log("[5] main path: synthetic full shape on the card")
-    counts = prove_full(torch, np, K, dev)
+    log("[5] main path: synthetic full shape on the card, MSM core pippenger")
+    fx = synthetic_fixture()
+    sigma, proof, counts = drive(torch, np, K, dev, fx, "pippenger")
+    affine = [K.AFF_PRE.name, K.AFF_POST.name]
+    expect_launches(counts, [n for n in counts if n not in affine], affine, "pippenger path")
+
+    log("[5b] MSM core affine_tree: a 2^22-point MSM, then the main path again")
+    msm_stats = affine_msm_check(torch, np, K, dev)
+    _, proof_b, counts_b = drive(torch, np, K, dev, fx, "affine_tree", sigma)
+    expect(proof_b == proof, "affine_tree proof bytes == pippenger proof bytes")
+    expect_launches(counts_b, affine + [K.BATCH_INV.name],
+                    [K.MSM_BUCKET_SUM.name, K.MSM_WINDOW.name], "affine_tree path")
+    del sigma
+    torch.cuda.empty_cache()
+
     log("[6] kernel times (CUDA events) beside plain versions and bounds")
-    kernels_line = json.dumps({"kernels": measure(torch, np, K, dev, counts)})
+    counts.update({n: counts_b[n] for n in affine})
+    rows = measure(torch, np, K, dev, counts)
+    rows[-1]["affine_tree_msm_2^22"] = msm_stats
+    kernels_line = json.dumps({"kernels": rows})
 
     log(f"total {time.perf_counter() - t_all:.3f} s")
     print(gpu_line())

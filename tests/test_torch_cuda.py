@@ -80,3 +80,48 @@ def test_g1_kernels(dev):
         X, Y, Z = (FQ.from_mont(FQ.from_limbs(r.tolist())) for r in rows)
         return G1.to_affine((X, Y, Z))
     assert aff(got) == aff(want)
+
+
+def planted_affine(n, seed, dev):
+    """Two [24, n] affine operand batches cycling through P+Q, P+P, P+(-P),
+    inf+Q, P+inf and inf+inf ((0, 0) = infinity), points k G for small k."""
+    from tokamak_zk_evm_tpu_torch.fields import Q_MOD
+    from tokamak_zk_evm_tpu_torch.host.curve import g1_scalar_mul_affine
+    from tokamak_zk_evm_tpu_torch.ops import curve as TC
+
+    rng = np.random.default_rng(seed)
+    base = [g1_scalar_mul_affine(G1.gen, k) for k in range(1, 40)]
+    a, b = [], []
+    for i in range(n):
+        P, Q = (base[int(j)] for j in rng.choice(len(base), size=2, replace=False))
+        case = i % 6
+        a.append(None if case in (3, 5) else P)
+        b.append({0: Q, 1: P, 2: (P[0], (-P[1]) % Q_MOD), 3: Q}.get(case))
+    x1, y1, _ = TC.pack_affine(a, dev)
+    x2, y2, _ = TC.pack_affine(b, dev)
+    return x1, y1, x2, y2
+
+
+def test_affine_add_kernels(dev):
+    x1, y1, x2, y2 = planted_affine(3000, 6, dev)
+    den = K.aff_pre(x1, y1, x2, y2)
+    assert torch.equal(den, K.plain_aff_pre(x1, y1, x2, y2))
+    dinv = K.fq_batch_inv(den)
+    got = K.aff_post(x1, y1, x2, y2, dinv)
+    want = K.plain_aff_post(x1, y1, x2, y2, dinv)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_affine_tree_matches_pippenger(dev):
+    from tokamak_zk_evm_tpu_torch.ops import msm as TM
+
+    n = 1 << 16
+    tx, ty, tinf = K.fixed_base_table(*G1.gen, dev)
+    c = rand(FR, n, 7, dev)
+    c[1:] = 0
+    c[0] %= 997  # few distinct points: repeats and a few infinities
+    px, py, pinf = K.g1_to_affine(K.g1_fixed_base(c, tx, ty, tinf))
+    sc = rand(FR, n, 8, dev)
+    want = TM.msm(sc, px, py, pinf)
+    with TM.use_core("affine_tree"):
+        assert TM.msm(sc, px, py, pinf) == want

@@ -10,13 +10,20 @@ into the package's git-ignored `build/` directory, at first use.  `build_all`
 starts one nvcc per source at once.  The ptxas report (registers, spills) of
 each build is kept beside the library as `build/<name>.log`.
 
+Several processes may share one checkout (a test run beside `chip_smoke.py`):
+a build holds an exclusive `fcntl` lock on `build/.lock`, writes each library
+under a temporary name and `os.replace`s it into place, so no process ever
+loads a half-written library.
+
 Every C entry takes pointers and the stream as `void*` and returns the
 `cudaError_t` of its launches; `call` raises on a non-zero code.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -39,6 +46,10 @@ SIGNATURES = {
         "tzk_batch_inv_bwd": [_I, _P, _P, _P, _P, _LL, _I, _P],
     },
     "ntt": {"tzk_ntt": [_P, _P, _P, _P, _LL, _LL, _P]},
+    "g1_affine": {
+        "tzk_aff_pre": [_P, _P, _P, _P, _P, _LL, _P],
+        "tzk_aff_post": [_P, _P, _P, _P, _P, _P, _P, _LL, _P],
+    },
     "g1": {
         "tzk_g1_fixed_base": [_P, _P, _P, _P, _P, _P, _P, _LL, _P],
         "tzk_msm_bucket_sum": [_I, _P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P],
@@ -73,10 +84,26 @@ def _fresh(name: str) -> bool:
     return os.path.getmtime(so) >= max(newest, os.path.getmtime(src))
 
 
+@contextlib.contextmanager
+def build_lock():
+    """Hold an exclusive lock on `build/.lock` (across processes)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _tmp(path: str) -> str:
+    return f"{path}.{os.getpid()}.tmp"
+
+
 def _command(name: str) -> list[str]:
     src, so, _ = _paths(name)
     return [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", so, src]
+            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", _tmp(so), src]
 
 
 def build_all(names=None) -> dict[str, float]:
@@ -86,23 +113,26 @@ def build_all(names=None) -> dict[str, float]:
     import time
 
     names = list(SIGNATURES) if names is None else list(names)
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
-    t0 = time.perf_counter()
-    for name in names:
-        if _fresh(name):
-            continue
-        log = open(_paths(name)[2], "w")
-        procs[name] = (subprocess.Popen(_command(name), stdout=log,
-                                        stderr=subprocess.STDOUT), log)
-    took = {}
-    failed = []
-    for name, (proc, log) in procs.items():
-        rc = proc.wait()
-        log.close()
-        took[name] = time.perf_counter() - t0
-        if rc != 0:
-            failed.append(name)
+    with build_lock():
+        procs = {}
+        t0 = time.perf_counter()
+        for name in names:
+            if _fresh(name):
+                continue
+            log = open(_paths(name)[2], "w")
+            procs[name] = (subprocess.Popen(_command(name), stdout=log,
+                                            stderr=subprocess.STDOUT), log)
+        took = {}
+        failed = []
+        for name, (proc, log) in procs.items():
+            rc = proc.wait()
+            log.close()
+            took[name] = time.perf_counter() - t0
+            so = _paths(name)[1]
+            if rc == 0:
+                os.replace(_tmp(so), so)
+            else:
+                failed.append(name)
     if failed:
         msgs = []
         for name in failed:

@@ -20,6 +20,8 @@ bounds it on the card, and what its design does about that):
   K4 csrc/g1.cu         G1_FIXED_BASE    k_i * G from a window table
                         MSM_BUCKET_SUM   bounded-chunk bucket sums
                         MSM_WINDOW       sum_b b * B_b per window segment
+  K5 csrc/g1_affine.cu  AFF_PRE          affine-add slope denominators
+                        AFF_POST         affine add from the inverted ones
 
 `fr_prefix_prod` / `fr_suffix_prod` are a log-depth scan over the Fr mul
 kernel, and `g1_add` / `g1_dbl` / `g1_to_affine` chains of field ops, as the
@@ -63,8 +65,10 @@ NTT = Kernel("ntt", "ntt.cu", f"{_PK}:640")
 G1_FIXED_BASE = Kernel("g1_fixed_base", "g1.cu", f"{_PK}:961")
 MSM_BUCKET_SUM = Kernel("msm_bucket_sum", "g1.cu", f"{_PK}:1254")
 MSM_WINDOW = Kernel("msm_window_reduce", "g1.cu", f"{_PK}:1408")
+AFF_PRE = Kernel("aff_pre", "g1_affine.cu", f"{_PK}:1055")
+AFF_POST = Kernel("aff_post", "g1_affine.cu", f"{_PK}:1096")
 KERNELS = (FR_EW, FQ_EW, FIELD_INV, BATCH_INV, NTT, G1_FIXED_BASE, MSM_BUCKET_SUM,
-           MSM_WINDOW)
+           MSM_WINDOW, AFF_PRE, AFF_POST)
 
 
 def reset_counts() -> None:
@@ -207,14 +211,21 @@ def fq_inv(a):
     return field_inv(1, a)
 
 
+PLAIN_BINV_DIRECT = 512  # batches up to this size: one inversion per element
+
+
 def plain_batch_inv(field: int, a):
     """Plain version of K2's batch inversion: the same chunked walk, one
-    vector lane per chunk."""
+    vector lane per chunk.  A small batch inverts element by element
+    instead (the same values): the walk's 48 dependent products cost more
+    than a few hundred host inversions."""
     F = _FR if field == 0 else _FQ
     x = a.to(torch.int64)
     L, B = x.shape
     if B == 0:
         return a.clone()
+    if B <= PLAIN_BINV_DIRECT:
+        return limbs.inv(F, x).to(torch.int32)
     K = BINV_CHUNK
     nch = -(-B // K)
     pad = nch * K - B
@@ -505,6 +516,81 @@ def g1_to_affine(p):
     x = fq_mul(X, zi2)
     y = fq_mul(Y, fq_mul(zi2, zi))
     return x, y, _is_zero(Z).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# K5: batched complete affine add, (0, 0) = infinity
+# ---------------------------------------------------------------------------
+
+
+def _aff_cases(ar, x1, y1, x2, y2):
+    """(dx, dy, inf1, inf2, dbl, cancel) of each lane of an affine add."""
+    inf1 = _is_zero(x1) & _is_zero(y1)
+    inf2 = _is_zero(x2) & _is_zero(y2)
+    dx, dy = ar.sub(x2, x1), ar.sub(y2, y1)
+    xeq, yeq, live = _is_zero(dx), _is_zero(dy), ~inf1 & ~inf2
+    return dx, dy, inf1, inf2, live & xeq & yeq, live & xeq & ~yeq
+
+
+def plain_aff_pre(x1, y1, x2, y2):
+    """Plain version of aff_pre: 2 y1 on doubling lanes, x2 - x1 on add
+    lanes, Montgomery one where either operand is infinite or P + (-P)."""
+    x1, y1, x2, y2 = (t.to(torch.int64) for t in (x1, y1, x2, y2))
+    dx, _, inf1, inf2, dbl, cancel = _aff_cases(_PLAIN, x1, y1, x2, y2)
+    den = _sel(dbl, _PLAIN.add(y1, y1), dx)
+    return _sel(inf1 | inf2 | cancel, _PLAIN.one(den.shape[1], den.device), den).to(torch.int32)
+
+
+def plain_aff_post(x1, y1, x2, y2, dinv):
+    """Plain version of aff_post: lambda = (3 x1^2 or y2 - y1) / den,
+    x3 = lambda^2 - x1 - x2, y3 = lambda (x1 - x3) - y1, then the infinity
+    and cancellation selects."""
+    x1, y1, x2, y2, dinv = (t.to(torch.int64) for t in (x1, y1, x2, y2, dinv))
+    ar = _PLAIN
+    _, dy, inf1, inf2, dbl, cancel = _aff_cases(ar, x1, y1, x2, y2)
+    (sq,) = ar.muls((x1, x1))
+    (lam,) = ar.muls((_sel(dbl, ar.add(ar.add(sq, sq), sq), dy), dinv))
+    (lam2,) = ar.muls((lam, lam))
+    x3 = ar.sub(ar.sub(lam2, x1), x2)
+    (t,) = ar.muls((lam, ar.sub(x1, x3)))
+    y3 = ar.sub(t, y1)
+    zero = torch.zeros_like(x3)
+    ox = _sel(inf1, x2, _sel(inf2, x1, _sel(cancel, zero, x3)))
+    oy = _sel(inf1, y2, _sel(inf2, y1, _sel(cancel, zero, y3)))
+    return ox.to(torch.int32), oy.to(torch.int32)
+
+
+def aff_pre(x1, y1, x2, y2):
+    for t, n in ((x1, "x1"), (y1, "y1"), (x2, "x2"), (y2, "y2")):
+        _check(t, FQ_L, n)
+    if not on_card(x1, y1, x2, y2):
+        return plain_aff_pre(x1, y1, x2, y2)
+    den = torch.empty_like(x1)
+    build.call("g1_affine", "tzk_aff_pre", _ptr(x1), _ptr(y1), _ptr(x2), _ptr(y2), _ptr(den),
+               x1.shape[1], _stream(x1))
+    AFF_PRE.launches += 1
+    return den
+
+
+def aff_post(x1, y1, x2, y2, dinv):
+    for t, n in ((x1, "x1"), (y1, "y1"), (x2, "x2"), (y2, "y2"), (dinv, "dinv")):
+        _check(t, FQ_L, n)
+    if not on_card(x1, y1, x2, y2, dinv):
+        return plain_aff_post(x1, y1, x2, y2, dinv)
+    ox, oy = torch.empty_like(x1), torch.empty_like(x1)
+    build.call("g1_affine", "tzk_aff_post", _ptr(x1), _ptr(y1), _ptr(x2), _ptr(y2),
+               _ptr(dinv), _ptr(ox), _ptr(oy), x1.shape[1], _stream(x1))
+    AFF_POST.launches += 1
+    return ox, oy
+
+
+def g1_aff_add_batch(p1, p2):
+    """Complete affine add of [24, B] point pairs ((0, 0) = infinity): the
+    slope denominators, one Fq batch inversion (K2), then the add."""
+    (x1, y1), (x2, y2) = p1, p2
+    x1, y1, x2, y2 = (t.contiguous() for t in (x1, y1, x2, y2))
+    dinv = fq_batch_inv(aff_pre(x1, y1, x2, y2))
+    return aff_post(x1, y1, x2, y2, dinv)
 
 
 # ---------------------------------------------------------------------------

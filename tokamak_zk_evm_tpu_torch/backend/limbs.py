@@ -109,15 +109,22 @@ def mul(F: LimbField, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def inv(F: LimbField, a: torch.Tensor) -> torch.Tensor:
-    """Fermat a^(p-2) by square-and-multiply; 0 maps to 0."""
-    e = F.spec.modulus - 2
-    acc = F.one(a.device).expand_as(a).clone()
-    base = a
-    while e:
-        if e & 1:
-            acc = mul(F, acc, base)
-        e >>= 1
-        if e:
-            base = mul(F, base, base)
-    return acc
+    """Montgomery inverse, 0 maps to 0: the value of the Fermat power
+    a^(p-2) taken with Montgomery products, which is R^2 / a mod p.
+
+    Each column becomes one host integer and is inverted by Python's
+    extended Euclid: a square-and-multiply over tensors costs ~570
+    dependent products whatever the batch, and the affine MSM runs hundreds
+    of small inversions one after another."""
+    p, L = F.spec.modulus, F.L
+    r2 = F.spec.R2_mod
+    cols = a.to(torch.int64).T.cpu().numpy().astype("<u2").tobytes()
+    step = 2 * L
+    out = bytearray()
+    for i in range(0, len(cols), step):
+        v = int.from_bytes(cols[i : i + step], "little")
+        out += (pow(v, -1, p) * r2 % p if v else 0).to_bytes(step, "little")
+    res = torch.frombuffer(out, dtype=torch.int16) if out else torch.zeros(0, dtype=torch.int16)
+    res = res.to(torch.int64) & LIMB_MASK
+    return res.reshape(-1, L).T.contiguous().to(a.device)
 

@@ -1,8 +1,9 @@
 """Keccak-256 (original padding 0x01, as used by Ethereum/Solidity).
 
 Native C++ core (host/keccak256.cpp, built on demand with g++ into the
-port's git-ignored build/ directory and loaded with ctypes) with a
-pure-Python Keccak-f[1600] fallback — transcript hashing stays on the host.
+port's git-ignored build/ directory under `backend.build`'s lock, replaced
+into place whole, and loaded with ctypes) with a pure-Python Keccak-f[1600]
+fallback — transcript hashing stays on the host.
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+
+from ..backend import build
 
 _NATIVE = None
 
@@ -19,15 +22,16 @@ def _load_native():
     if _NATIVE is not None:
         return _NATIVE
     try:
-        pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "keccak256.cpp")
-        so = os.path.join(pkg, "build", "libkeccak256.so")
-        os.makedirs(os.path.dirname(so), exist_ok=True)
-        if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
-            subprocess.run(
-                ["g++", "-O2", "-shared", "-fPIC", "-o", so, src],
-                check=True, capture_output=True,
-            )
+        so = os.path.join(build.BUILD_DIR, "libkeccak256.so")
+        with build.build_lock():
+            if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
+                tmp = f"{so}.{os.getpid()}.tmp"
+                subprocess.run(
+                    ["g++", "-O2", "-shared", "-fPIC", "-o", tmp, src],
+                    check=True, capture_output=True,
+                )
+                os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         lib.keccak256.argtypes = [
             ctypes.c_char_p, ctypes.c_uint64, ctypes.c_char_p

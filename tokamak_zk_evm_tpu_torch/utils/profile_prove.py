@@ -1,14 +1,16 @@
 """Profile one full-shape prove on the card: device busy share and the
 kernels that take the device time.
 
-    python -m tokamak_zk_evm_tpu_torch.utils.profile_prove [--out DIR]
+    python -m tokamak_zk_evm_tpu_torch.utils.profile_prove [--core NAME] [--out DIR]
 
 Builds `build_synthetic()` at its defaults, runs setup and one untraced
 prove (so every kernel is built and warm), then traces a second prove with
 `torch.profiler` and prints one JSON line: the prove's wall seconds, the
 device busy seconds (union of the CUDA activity intervals), the busy share,
 and the ten CUDA kernels with the most device time.  `--out DIR` also writes
-the Chrome trace there.  Needs a CUDA device.
+the Chrome trace there; `--core` picks the MSM core both proves run on
+(`ops.msm.use_core`: "pippenger", the default, or "affine_tree").  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ def _busy_us(intervals) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser(description="profile one full-shape prove")
     ap.add_argument("--out", help="directory for the Chrome trace")
+    ap.add_argument("--core", default="pippenger", help="MSM core (ops.msm.CORES)")
     args = ap.parse_args()
 
     import numpy as np
@@ -43,6 +46,7 @@ def main() -> None:
     from ..models.protocol import Mixer
     from ..models.prover import Prover
     from ..models.setup import Tau, generate_sigma
+    from ..ops import msm
     from ..testing.synthetic import build_synthetic
 
     if not torch.cuda.is_available():
@@ -57,7 +61,8 @@ def main() -> None:
                         device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prover.prove()
+        with msm.use_core(args.core):
+            prover.prove()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -76,6 +81,7 @@ def main() -> None:
         prof.export_chrome_trace(os.path.join(args.out, "prove_trace.json"))
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "core": args.core,
         "prove_wall_s": wall,
         "device_busy_s": busy,
         "busy_share": busy / wall if wall else None,
