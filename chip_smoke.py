@@ -8,7 +8,10 @@ Run from the repository root, with one NVIDIA GPU and no arguments:
 Phases, in order (any mismatch or exception exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel of the port from `tokamak_zk_evm_tpu_torch/backend/csrc`
-     (one nvcc per source, all at once);
+     (one nvcc per source, all at once), print each kernel's ptxas registers
+     and stack frame, and require that the MSM build reports exactly its
+     three stage kernels (the bucket sum's two passes and the window
+     reduce), each with no stack frame and no spills;
   3. each kernel against its plain PyTorch version on the card, exact:
      K1/K2 on Fr and Fq batches holding 0, 1 and p-1; K3 forward and inverse
      at 16384 x 512 (and a coset round trip); K4 fixed-base and MSM at 2^12
@@ -30,9 +33,13 @@ Phases, in order (any mismatch or exception exits non-zero):
      must equal phase 5's, it must verify, and K5 and the batch inversion
      must have launched while K4's MSM stages did not;
   6. each kernel at the main path's shapes: held against its plain version
-     there (every output of K1, K2, K3, K5, the fixed-base kernel and the
-     window reduce; every 64th chunk of the 2^22-point bucket sum, all of it
-     at 2^16), then timed beside the plain version and its bound.
+     there (every output of K1, K2, K3, K5, the fixed-base kernel and every
+     level of the window reduce; every 64th chunk of both passes of the
+     2^22-point bucket sum, the affine pass and the jacobian pass over its
+     partials, for uniform and for skewed, witness-like scalars, all of it at
+     2^16), then timed beside the plain version and its bound; the skewed
+     2^22-point MSM is held against the O(1) oracle too, and the window
+     reduce at 8/2 buckets a thread against the default.
 The last three lines are the nvidia-smi line, the kernels JSON and the device
 JSON. The port imports nothing of JAX; neither does this script.
 """
@@ -73,6 +80,24 @@ def expect(cond: bool, what: str) -> None:
     if not cond:
         fail(what)
     log(f"  ok  {what}")
+
+
+def ptxas_frames(path: str) -> dict:
+    """{function: (stack frame, spill store, spill load bytes)} from an
+    `nvcc -Xptxas -v` log."""
+    import re
+
+    out, fn = {}, None
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m and fn:
+                out[fn] = tuple(int(v) for v in m.groups())
+    return out
 
 
 def gpu_line() -> str:
@@ -253,10 +278,12 @@ def plain_bintt(torch, K, F, grid, inverse, cx, cy):
     return g.transpose(1, 2).contiguous()
 
 
-def oracle_inputs(torch, np, K, dev, rng, n):
+def oracle_inputs(torch, np, K, dev, rng, n, skew=False):
     """Points c_i G (c_i from a small set, so points repeat; c_i = 0 gives
     infinity) and scalars k_i (some zero, one r-1); returns the device
-    inputs and the host oracle point (sum k_i c_i) G."""
+    inputs and the host oracle point (sum k_i c_i) G.  skew: small
+    witness-like scalars, 90% of them 1 and the rest below 2^16, so one
+    bucket holds most entries."""
     from tokamak_zk_evm_tpu_torch.fields import FR, R_MOD
     from tokamak_zk_evm_tpu_torch.host.curve import G1
 
@@ -267,6 +294,9 @@ def oracle_inputs(torch, np, K, dev, rng, n):
     tx, ty, tinf = K.fixed_base_table(*G1.gen, dev)
     px, py, pinf = K.g1_to_affine(K.g1_fixed_base(torch.as_tensor(cl, device=dev), tx, ty, tinf))
     k = rand_field(np, rng, FR, n)
+    if skew:
+        k[:] = 0
+        k[0] = np.where(rng.random(n) < 0.9, 1, rng.integers(0, 1 << 16, size=n))
     k[:, rng.integers(0, n, size=31)] = 0
     k[:, 5] = FR.to_limbs(R_MOD - 1)
     acc = 0
@@ -285,10 +315,12 @@ def msm_oracle_check(torch, np, K, dev, rng, n, plain):
         expect(pl == got, f"MSM {n} points: kernel stages == plain stages")
         c, nwin, pidx, bucket, counts = K.msm_plan(k, pinf)
         start, length, _ = K.chunk_segments(counts)
-        pin = pinf.to(torch.int32).contiguous()
-        a = affine_host(K.msm_bucket_sum(0, px, py, pin, pidx, start, length))
-        b = affine_host(K.plain_msm_bucket_sum(0, px, py, pin, pidx, start, length))
-        expect(a == b, f"msm_bucket_sum kernel == plain ({start.shape[0]} chunks)")
+        pts = K.pack_points(px, py)
+        a = K.msm_bucket_sum(0, pts, pidx, start, length)
+        b = K.plain_msm_bucket_sum(0, pts, pidx, start, length)
+        err = packed_err(K, a, b)
+        expect(err == 0, f"msm_bucket_sum kernel == plain ({start.shape[0]} chunks, "
+               f"max_abs_err {err})")
 
 
 def planted_affine(torch, np, K, dev, rng, n, mix):
@@ -507,38 +539,70 @@ def points_err(K, p, q) -> int:
     return max(ex, ey, (1 << 16) if inf_differs else 0)
 
 
-def msm_stage_inputs(torch, np, K, dev, rng, n):
+def packed_err(K, p, q) -> int:
+    """`points_err` of two packed jacobian outputs ([n, 36] words)."""
+    return points_err(K, K.unpack_points(p, 3), K.unpack_points(q, 3))
+
+
+def msm_stage_inputs(torch, np, K, dev, rng, n, skew=False):
     """The level-1 bucket-sum and the window-reduce inputs of one MSM of n
-    oracle points: {stage: (kernel fn, plain fn, bytes, ops, shape)}."""
-    k, px, py, pinf, _ = oracle_inputs(torch, np, K, dev, rng, n)
+    oracle points: {stage: (kernel fn, plain fn, bytes, ops, shape)}.
+    Bytes: each input read once (packed points, entry indices, chunk
+    bounds, bucket sums and keys), each output written once.  Operations:
+    11 Fq products per mixed add of the first bucket-sum pass and 16 per
+    jacobian add of the second, one add per entry but the first of a chunk,
+    which is loaded (m - chunks adds; "per_entry_ops" counts m, as the
+    earlier kernel's bound did); for the window reduce 16 per jacobian add, two adds per
+    bucket (the running sum and the total), the least a running-sum
+    reduction does."""
+    k, px, py, pinf, want = oracle_inputs(torch, np, K, dev, rng, n, skew)
     c, nwin, pidx, bucket, cnt = K.msm_plan(k, pinf)
-    start, length, _ = K.chunk_segments(cnt)
-    pin = pinf.to(torch.int32).contiguous()
-    m = int(pidx.shape[0])
-    out = {"inputs": (k, px, py, pinf)}
+    pts = K.pack_points(px, py)
+    start, length, per = K.chunk_segments(cnt)
+    m, nch = int(pidx.shape[0]), int(start.shape[0])
+    tag = f"2^{n.bit_length() - 1} points{' skewed' if skew else ''}"
+    out = {"inputs": (k, px, py, pinf, want),
+           "per_entry_ops": m * MIXED_ADD_MULS * FQ_MUL_OPS}
     out["bucket"] = (
-        lambda: K.msm_bucket_sum(0, px, py, pin, pidx, start, length),
-        lambda: K.plain_msm_bucket_sum(0, px, py, pin, pidx, start, length),
-        2 * 96 * n + 8 * m + 16 * start.shape[0] + 3 * 96 * start.shape[0],
-        m * MIXED_ADD_MULS * FQ_MUL_OPS, f"2^{n.bit_length() - 1} points, {m} entries")
+        lambda: K.msm_bucket_sum(0, pts, pidx, start, length),
+        lambda: K.plain_msm_bucket_sum(0, pts, pidx, start, length),
+        96 * n + 8 * m + 16 * nch + 144 * nch,
+        (m - nch) * MIXED_ADD_MULS * FQ_MUL_OPS,
+        f"{tag}, {m} entries, {nch} chunks")
     # chunks are summed independently: every 64th, for a plain check of a
     # kernel run over all of them
-    sel = torch.arange(0, start.shape[0], 64, device=dev)
+    sel = torch.arange(0, nch, 64, device=dev)
     out["bucket_every_64th"] = (
-        sel, lambda: K.plain_msm_bucket_sum(0, px, py, pin, pidx, start[sel], length[sel]))
+        sel, lambda: K.plain_msm_bucket_sum(0, pts, pidx, start[sel], length[sel]))
+
+    def second_pass(part):
+        """The jacobian pass over the first pass's chunk partials `part`, as
+        `segment_sums` runs it: (kernel fn, plain fn on every 64th chunk,
+        selection, bytes, ops, shape)."""
+        start2, length2, _ = K.chunk_segments(per)
+        nch2 = int(start2.shape[0])
+        sel2 = torch.arange(0, nch2, 64, device=dev)
+        return (lambda: K.msm_bucket_sum(1, part, None, start2, length2),
+                lambda: K.plain_msm_bucket_sum(1, part, None, start2[sel2], length2[sel2]),
+                sel2, 144 * nch + 16 * nch2 + 144 * nch2,
+                (nch - nch2) * JAC_ADD_MULS * FQ_MUL_OPS,
+                f"{tag}, pass 2: {nch} partials, {nch2} chunks")
+
+    out["bucket_pass2"] = second_pass
     nb = 1 << c
-    bx, by, bz = K.segment_sums(K.msm_bucket_sum, 0, px, py, pin, pidx, cnt)
-    dense = [t.clone() for t in K._inf(K._OPS_FQ, nwin * nb, dev)]
-    for d, v in zip(dense, (bx, by, bz)):
-        d[:, bucket] = v
-    seg = min(K.MSM_SEG, nb)
-    nseg = nwin * nb // seg
+    sums = K.segment_sums(K.msm_bucket_sum, 0, pts, pidx, cnt)
+    nbk = int(bucket.shape[0])
     out["window"] = (
-        lambda: K.msm_window_reduce(*dense, nwin, nb, seg),
-        lambda: K.plain_msm_window_reduce(*dense, nwin, nb, seg),
-        3 * 96 * nwin * nb + 3 * 96 * nseg,
-        (2 * bucket.shape[0] + 2 * nseg * c) * JAC_ADD_MULS * FQ_MUL_OPS,
-        f"{nwin} windows x 2^{c} buckets")
+        lambda: K.window_sums(K.msm_window_reduce, sums, bucket, nwin, nb),
+        lambda: K.window_sums(K.plain_msm_window_reduce, sums, bucket, nwin, nb),
+        (144 + 8) * nbk + 144 * nwin,
+        2 * nwin * nb * JAC_ADD_MULS * FQ_MUL_OPS,
+        f"{nwin} windows x 2^{c} buckets, all levels")
+    seg = min(K.MSM_SEG, nb)
+    out["window_level1"] = lambda: K.msm_window_reduce(sums, None, bucket, nwin * nb // seg,
+                                                       seg, 0)
+    # the other first-level segment that fills the card, timed beside the default
+    out["window_seg8"] = lambda: K.window_sums(K.msm_window_reduce, sums, bucket, nwin, nb, 8, 2)
     return out
 
 
@@ -559,7 +623,10 @@ def measure(torch, np, K, dev, counts):
 
     def row(kern, shape, fn, plain, nbytes, ops, reps=5, points=False):
         got, want = fn(), plain()
-        err = points_err(K, got, want) if points else limbs_err(got, want)
+        if points:
+            err = packed_err(K, got, want) if torch.is_tensor(got) else points_err(K, got, want)
+        else:
+            err = limbs_err(got, want)
         del got, want
         expect(err == 0, f"{kern.name} {shape}: kernel == plain (max_abs_err {err})")
         ms = cuda_ms(torch, fn, reps, warm=False)  # fn and plain just ran once
@@ -624,32 +691,65 @@ def measure(torch, np, K, dev, counts):
     # The MSM stages at the main path's largest commitment, 2^22 points. The
     # plain bucket sum over all of its chunks would gather 2^26 points
     # (~40 GB of int64 limbs), so there it is held against every 64th chunk
-    # of the kernel's output, and timed in full at 2^16 points.
-    big = msm_stage_inputs(torch, np, K, dev, rng, 1 << 22)
+    # of the kernel's output, and timed in full at 2^16 points. The same at
+    # 2^22 for skewed (witness-like) scalars, whose MSM is also held against
+    # the oracle.
+    main = {}
+
+    def every_64th(key, fn, sel, plain_sel, nbytes, ops, shape):
+        """Run a bucket-sum pass over all chunks, hold every 64th chunk to the
+        plain version, time it; -> the kernel's output."""
+        got = fn()
+        err = points_err(K, K.unpack_points(got[sel], 3), K.unpack_points(plain_sel(), 3))
+        expect(err == 0, f"msm_bucket_sum {shape}: kernel == plain on every 64th chunk "
+               f"({sel.shape[0]} chunks, max_abs_err {err})")
+        ms = cuda_ms(torch, fn, 3)
+        b, by = bound_ms(nbytes, ops)
+        log(f"  {K.MSM_BUCKET_SUM.name:18s} {shape:28s} {ms:10.3f} ms  (kernel only)  "
+            f"bound {b:8.4f} ms ({by})")
+        main.update({key + "shape": shape, key + "ms": round(ms, 4),
+                     key + "bound_ms": round(b, 4), key + "max_abs_err": err,
+                     key + "imad_bound_ms": round(bound_ms(nbytes, ops, IMAD_PER_S)[0], 4)})
+        return got
+
+    for skew in (False, True):
+        big = msm_stage_inputs(torch, np, K, dev, rng, 1 << 22, skew)
+        fn, _, nbytes, ops, shape = big["bucket"]
+        key = "skewed_" if skew else "main_path_"
+        part = every_64th(key, fn, *big["bucket_every_64th"], nbytes, ops, shape)
+        main[key + "bound_ms_per_entry"] = round(bound_ms(nbytes, big["per_entry_ops"])[0], 4)
+        fn2, plain2, sel2, nbytes2, ops2, shape2 = big["bucket_pass2"](part)
+        every_64th(key + "pass2_", fn2, sel2, plain2, nbytes2, ops2, shape2)
+        del part, fn2, plain2
+        k, px, py, pinf, want = big["inputs"]
+        if skew:
+            got = rows_affine(K.g1_msm(k, px, py, pinf))
+            expect(got == want, "skewed MSM of 2^22 points == (sum k_i c_i) G")
+            main["skewed_g1_msm_start_ms"] = round(
+                cuda_ms(torch, lambda: K.g1_msm_start(k, px, py, pinf), reps=2), 4)
+            del big
+            break
+        fn, plain, nbytes, ops, shape = big["window"]
+        window_args = (K.MSM_WINDOW, shape, fn, plain, nbytes, ops)
+        err = packed_err(K, big["window_seg8"](), fn())
+        expect(err == 0, f"window reduce 8/2 == {K.MSM_SEG}/{K.MSM_SEG_UP} (max_abs_err {err})")
+        seg8_ms = cuda_ms(torch, big["window_seg8"], 3)
+        level1_ms = cuda_ms(torch, big["window_level1"], 3)
+        msm_ms = cuda_ms(torch, lambda: K.g1_msm_start(k, px, py, pinf), reps=2)
+        log(f"  g1_msm_start (plan + K4 stages) at 2^22 points: {msm_ms:.3f} ms")
+        del big, k, px, py, pinf
+        torch.cuda.empty_cache()
     small = msm_stage_inputs(torch, np, K, dev, rng, 1 << 16)
-    fn, _, nbytes, ops, shape = big["bucket"]
-    sel, plain_sel = big["bucket_every_64th"]
-    got = fn()
-    err = points_err(K, [c[:, sel] for c in got], plain_sel())
-    del got
-    expect(err == 0, f"msm_bucket_sum {shape}: kernel == plain on every 64th chunk "
-           f"({sel.shape[0]} chunks, max_abs_err {err})")
-    ms = cuda_ms(torch, fn, 3)
-    b, by = bound_ms(nbytes, ops)
     fn_s, plain_s, nbytes_s, ops_s, shape_s = small["bucket"]
     row(K.MSM_BUCKET_SUM, shape_s, fn_s, plain_s, nbytes_s, ops_s, points=True)
-    rows[-1].update({"main_path_shape": shape, "main_path_ms": round(ms, 4),
-                     "main_path_bound_ms": round(b, 4), "main_path_max_abs_err": err,
-                     "main_path_imad_bound_ms": round(bound_ms(nbytes, ops, IMAD_PER_S)[0], 4)})
-    log(f"  {K.MSM_BUCKET_SUM.name:18s} {shape:28s} {ms:10.3f} ms  (kernel only)  "
-        f"bound {b:8.4f} ms ({by})")
-    fn, plain, nbytes, ops, shape = big["window"]
-    row(K.MSM_WINDOW, shape, fn, plain, nbytes, ops, reps=3, points=True)
+    rows[-1]["bound_ms_per_entry"] = round(bound_ms(nbytes_s, small["per_entry_ops"])[0], 4)
+    rows[-1].update(main)
     del small
-    k, px, py, pinf = big["inputs"]
-    ms = cuda_ms(torch, lambda: K.g1_msm_start(k, px, py, pinf), reps=2)
-    log(f"  g1_msm_start (plan + K4 stages) at 2^22 points: {ms:.3f} ms")
-    del big, k, px, py, pinf
+    row(*window_args, reps=3, points=True)
+    rows[-1].update({"level1_ms": round(level1_ms, 4), "seg_8_2_ms": round(seg8_ms, 4),
+                     "g1_msm_start_2^22_ms": round(msm_ms, 4)})
+    log(f"  {K.MSM_WINDOW.name:18s} level 1 alone {level1_ms:10.3f} ms, "
+        f"all levels at 8/2 {seg8_ms:10.3f} ms")
     torch.cuda.empty_cache()
     # K5 at the affine tree's widest merge level at 2^22 points (wb = 2
     # windows of 2^21 pairs), every lane a P+Q add: aff_post does its three
@@ -700,9 +800,16 @@ def main() -> int:
     for name in build.SIGNATURES:
         with open(os.path.join(build.BUILD_DIR, f"{name}.log")) as f:
             for line in f:
-                spilled = "spill stores" in line and " 0 bytes spill stores" not in line
-                if "registers" in line or spilled:
+                if any(w in line for w in ("Function properties", "stack frame", "registers")):
                     log(f"    {name}: {line.strip()}")
+    frames = ptxas_frames(os.path.join(build.BUILD_DIR, "msm.log"))
+    for kern in ("bucket_sum_kernel_affine", "bucket_sum_kernel_jacobian", "window_reduce_kernel"):
+        found = [fn for fn in frames if kern in fn]
+        expect(len(found) == 1, f"ptxas: msm.log reports {kern} once ({len(found)} found)")
+        frame = frames[found[0]]
+        expect(frame == (0, 0, 0), f"ptxas: {kern} has no stack frame and no spills {frame}")
+    expect(len(frames) == 3, f"ptxas: msm.log reports exactly the three MSM stage kernels "
+           f"({len(frames)} found)")
 
     check_kernels(torch, np, K, dev)
     check_affine(torch, np, K, dev)

@@ -68,18 +68,55 @@ def test_ntt_kernel(dev):
         assert torch.equal(K.fr_ntt(data, pows, scale), K.plain_ntt(data, pows, scale))
 
 
-def test_g1_kernels(dev):
+def _affine_cols(packed):
+    """Packed jacobian [n, 36] -> host affine points (None = infinity)."""
+    X, Y, Z = (c.cpu() for c in K.unpack_points(packed, 3))
+    return [G1.to_affine(tuple(FQ.from_mont(FQ.from_limbs(c[:, i].tolist())) for c in (X, Y, Z)))
+            for i in range(X.shape[1])]
+
+
+@pytest.mark.parametrize("scalars", ["uniform", "skewed"])
+def test_g1_kernels(dev, scalars):
+    """Fixed-base kernel and the MSM against the plain versions, and each
+    MSM stage kernel against its plain version.  "skewed": small
+    witness-like scalars (most of them 1), so one bucket holds most
+    entries and the bucket sum runs a second pass over its chunks."""
     tx, ty, tinf = K.fixed_base_table(*G1.gen, dev)
     sc = rand(FR, 300, 5, dev)
     jac = K.g1_fixed_base(sc, tx, ty, tinf)
     assert all(torch.equal(a, b) for a, b in zip(jac, K.plain_g1_fixed_base(sc, tx, ty, tinf)))
     px, py, pinf = K.g1_to_affine(jac)
+    if scalars == "skewed":
+        rng = np.random.default_rng(9)
+        small = np.where(rng.random(300) < 0.8, 1, rng.integers(0, 1 << 12, size=300))
+        sc = torch.zeros_like(sc)
+        sc[0] = torch.as_tensor(small.astype(np.int32), device=dev)
     got = K.g1_msm(sc, px, py, pinf)
     want = K.g1_msm_finish(K.plain_g1_msm_start(sc, px, py, pinf))
     def aff(rows):
         X, Y, Z = (FQ.from_mont(FQ.from_limbs(r.tolist())) for r in rows)
         return G1.to_affine((X, Y, Z))
     assert aff(got) == aff(want)
+    c, nwin, pidx, bucket, counts = K.msm_plan(sc, pinf)
+    pts = K.pack_points(px, py)
+    start, length, _ = K.chunk_segments(counts)
+    assert (_affine_cols(K.msm_bucket_sum(0, pts, pidx, start, length))
+            == _affine_cols(K.plain_msm_bucket_sum(0, pts, pidx, start, length)))
+    sums = K.segment_sums(K.msm_bucket_sum, 0, pts, pidx, counts)
+    nb = 1 << c
+    rsum, keys, seg = None, bucket, K.MSM_SEG
+    while True:  # every level of the window reduce, each from the same inputs
+        seg = min(seg, nb)
+        nseg = nwin * nb // seg
+        shift = 0 if nseg == nwin else seg.bit_length() - 1
+        r, s = K.msm_window_reduce(sums, rsum, keys, nseg, seg, shift)
+        pr, ps = K.plain_msm_window_reduce(sums, rsum, keys, nseg, seg, shift)
+        assert _affine_cols(r) == _affine_cols(pr) and _affine_cols(s) == _affine_cols(ps)
+        if nseg == nwin:
+            break
+        rsum, sums, keys = r, s, torch.arange(nseg, device=dev)
+        nb //= seg
+        seg = K.MSM_SEG_UP
 
 
 def planted_affine(n, seed, dev):

@@ -52,8 +52,10 @@ SIGNATURES = {
     },
     "g1": {
         "tzk_g1_fixed_base": [_P, _P, _P, _P, _P, _P, _P, _LL, _P],
-        "tzk_msm_bucket_sum": [_I, _P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P],
-        "tzk_msm_window_reduce": [_P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P],
+    },
+    "msm": {
+        "tzk_msm_bucket_sum": [_I, _P, _P, _P, _P, _P, _LL, _P, _P],
+        "tzk_msm_window_reduce": [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _P],
     },
 }
 

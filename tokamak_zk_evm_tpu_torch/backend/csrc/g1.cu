@@ -1,27 +1,20 @@
-// K4: BLS12-381 G1 over Fq -- complete jacobian arithmetic, the fixed-base
-// kernel of trusted setup, and the two device stages of a Pippenger MSM.
+// K4: BLS12-381 G1 over Fq -- complete jacobian arithmetic and the
+// fixed-base kernel of trusted setup.  (The two device stages of the
+// Pippenger MSM, and the complete jacobian add they use, are in msm.cu.)
 //
 // Replaces, in tokamak_zk_evm_tpu/backend/pallas_kernels.py:
-//   * `_jac_add_fused_fn` / `_jac_add_block` (889-993): complete jacobian add
-//     (add-2007-bl with dbl-2009-l and the infinity / double / cancel cases)
-//     -> the __device__ functions jac_add / jac_dbl / mixed_add below;
+//   * `_jac_add_fused_fn` / `_jac_add_block` (889-993): complete jacobian
+//     arithmetic (add-2007-bl with dbl-2009-l and the infinity / double /
+//     cancel cases) -> the __device__ functions jac_dbl / mixed_add below and
+//     fq_chain.cuh's add_jac;
 //   * `_fixed_base_apply_fn` (2177) behind `g1_fixed_base` (2159): 32 windows
 //     of 8 bits against the host-built 32 x 256 affine table
-//     -> fixed_base_kernel, one thread per scalar;
-//   * the packed MSM merge tree `_pk_fwd_fn`, `_pk_bwd_fn`, `_pk_jac_add_fn`
-//     (1254-1496) and the weighted bucket tail (1547) -> a Pippenger of its own
-//     design: digits and the per-window sort are tensor ops in the wrapper,
-//     bucket_sum_kernel sums bounded chunks of each bucket's sorted points
-//     (and, again, the chunk partials), window_reduce_kernel forms
-//     sum_b b * B_b over segments of each window, and the host finishes with a
-//     Horner combine as `g1_msm_finish` does (2042-2103).
+//     -> fixed_base_kernel, one thread per scalar.
 //
 // Every add here is complete.  The TPU merge tree uses incomplete adds that
 // assume distinct partial sums (1183-1191); repeated points and witness
-// values that pile into one bucket break that assumption, so a doubling or a
-// cancellation is handled wherever it can occur.  Long buckets are cut into
-// chunks of a bounded length so that one hot bucket does not serialise on one
-// thread.
+// values break that assumption, so a doubling or a cancellation is handled
+// wherever it can occur.
 //
 // Bound on the card: operations.  A mixed add is ~11 Fq Montgomery products
 // (~150 32-bit multiply-adds each) against 96 B of point data, far above the
@@ -81,44 +74,6 @@ __device__ __noinline__ void jac_dbl(Pt& o, const Pt& p) {
   copy_pt(o, r);
 }
 
-// complete jacobian add (add-2007-bl shape with the equal / opposite cases)
-__device__ __noinline__ void jac_add(Pt& o, const Pt& p, const Pt& q) {
-  if (is_inf(p)) { copy_pt(o, q); return; }
-  if (is_inf(q)) { copy_pt(o, p); return; }
-  fq Z1Z1, Z2Z2, U1, U2, S1, S2, H, R, t;
-  tzk::mul<Fq>(Z1Z1, p.Z, p.Z);
-  tzk::mul<Fq>(Z2Z2, q.Z, q.Z);
-  tzk::mul<Fq>(U1, p.X, Z2Z2);
-  tzk::mul<Fq>(U2, q.X, Z1Z1);
-  tzk::mul<Fq>(t, q.Z, Z2Z2);
-  tzk::mul<Fq>(S1, p.Y, t);
-  tzk::mul<Fq>(t, p.Z, Z1Z1);
-  tzk::mul<Fq>(S2, q.Y, t);
-  tzk::sub<Fq>(H, U2, U1);
-  tzk::sub<Fq>(R, S2, S1);
-  if (tzk::is_zero<Fq>(H)) {
-    if (tzk::is_zero<Fq>(R)) jac_dbl(o, p);
-    else set_inf(o);
-    return;
-  }
-  fq HH, HHH, V, RR, V2;
-  tzk::mul<Fq>(HH, H, H);
-  tzk::mul<Fq>(HHH, H, HH);
-  tzk::mul<Fq>(V, U1, HH);
-  tzk::mul<Fq>(RR, R, R);
-  Pt r;
-  tzk::add<Fq>(V2, V, V);
-  tzk::sub<Fq>(t, RR, HHH);
-  tzk::sub<Fq>(r.X, t, V2);
-  tzk::sub<Fq>(t, V, r.X);
-  tzk::mul<Fq>(t, R, t);
-  tzk::mul<Fq>(S1, S1, HHH);
-  tzk::sub<Fq>(r.Y, t, S1);
-  tzk::mul<Fq>(t, p.Z, q.Z);
-  tzk::mul<Fq>(r.Z, t, H);
-  copy_pt(o, r);
-}
-
 // complete mixed add: p jacobian, (qx, qy) affine and finite
 __device__ __noinline__ void mixed_add(Pt& o, const Pt& p, const fq& qx, const fq& qy) {
   if (is_inf(p)) {
@@ -156,13 +111,6 @@ __device__ __noinline__ void mixed_add(Pt& o, const Pt& p, const fq& qx, const f
   copy_pt(o, r);
 }
 
-__device__ __forceinline__ void load_pt(Pt& o, const int32_t* x, const int32_t* y,
-                                        const int32_t* z, long long i, long long stride) {
-  tzk::load<Fq>(o.X, x, i, stride);
-  tzk::load<Fq>(o.Y, y, i, stride);
-  tzk::load<Fq>(o.Z, z, i, stride);
-}
-
 __device__ __forceinline__ void store_pt(int32_t* x, int32_t* y, int32_t* z, long long i,
                                          long long stride, const Pt& p) {
   tzk::store<Fq>(x, i, stride, p.X);
@@ -195,74 +143,6 @@ __global__ void fixed_base_kernel(const int32_t* __restrict__ sc, const int32_t*
   store_pt(ox, oy, oz, i, B, acc);
 }
 
-// Chunk c sums entries [start[c], start[c] + len[c]).  mode 0: entry e is
-// the affine point idx[e] of (px, py, pinf = p3); mode 1: entry e is the
-// jacobian point e of (px, py, pz = p3).  Sources are [24, nsrc].
-__global__ void bucket_sum_kernel(int mode, const int32_t* __restrict__ px,
-                                  const int32_t* __restrict__ py,
-                                  const int32_t* __restrict__ p3,
-                                  const long long* __restrict__ idx,
-                                  const long long* __restrict__ start,
-                                  const long long* __restrict__ len, long long nchunks,
-                                  long long nsrc, int32_t* ox, int32_t* oy, int32_t* oz) {
-  long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= nchunks) return;
-  long long lo = start[c];
-  long long hi = lo + len[c];
-  Pt acc;
-  set_inf(acc);
-  for (long long e = lo; e < hi; ++e) {
-    if (mode == 0) {
-      long long i = idx[e];
-      if (__ldg(p3 + i)) continue;
-      fq qx, qy;
-      tzk::load<Fq>(qx, px, i, nsrc);
-      tzk::load<Fq>(qy, py, i, nsrc);
-      mixed_add(acc, acc, qx, qy);
-    } else {
-      Pt q;
-      load_pt(q, px, py, p3, e, nsrc);
-      jac_add(acc, acc, q);
-    }
-  }
-  store_pt(ox, oy, oz, c, nchunks, acc);
-}
-
-// Dense buckets [24, nwin * nb] (bucket b of window w at w*nb + b; bucket 0
-// is empty).  Thread (w, s) covers buckets [lo, lo + seg), lo = s*seg, and
-// writes sum_b b * B_b over them: a descending running sum gives
-// sum (b - lo) B_b, and lo * (sum B_b) is added by double-and-add.
-__global__ void window_reduce_kernel(const int32_t* __restrict__ bx,
-                                     const int32_t* __restrict__ by,
-                                     const int32_t* __restrict__ bz, long long nwin,
-                                     long long nb, int seg, int32_t* ox, int32_t* oy,
-                                     int32_t* oz) {
-  long long nseg = nb / seg;
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long total = nwin * nseg;
-  if (t >= total) return;
-  long long w = t / nseg;
-  long long lo = (t - w * nseg) * seg;
-  long long stride = nwin * nb;
-  Pt run, tot, q;
-  set_inf(run);
-  set_inf(tot);
-  for (long long b = lo + seg - 1; b >= lo; --b) {
-    jac_add(tot, tot, run);
-    load_pt(q, bx, by, bz, w * nb + b, stride);
-    jac_add(run, run, q);
-  }
-  Pt acc;
-  set_inf(acc);
-  for (int bit = 62; bit >= 0; --bit) {
-    if ((lo >> bit) == 0) continue;
-    jac_dbl(acc, acc);
-    if ((lo >> bit) & 1) jac_add(acc, acc, run);
-  }
-  jac_add(acc, acc, tot);
-  store_pt(ox, oy, oz, t, total, acc);
-}
-
 inline unsigned nblocks(long long n, int t) { return (unsigned)((n + t - 1) / t); }
 
 }  // namespace
@@ -275,30 +155,5 @@ extern "C" int tzk_g1_fixed_base(const void* scalars, const void* tx, const void
   fixed_base_kernel<<<nblocks(B, T), T, 0, (cudaStream_t)stream>>>(
       (const int32_t*)scalars, (const int32_t*)tx, (const int32_t*)ty, (const int32_t*)tinf,
       (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, B);
-  TZK_LAUNCH_CHECK();
-}
-
-extern "C" int tzk_msm_bucket_sum(int mode, const void* px, const void* py, const void* p3,
-                                  const void* idx, const void* start, const void* len,
-                                  long long nchunks, long long nsrc, void* ox, void* oy,
-                                  void* oz, void* stream) {
-  if (nchunks <= 0) return 0;
-  const int T = 128;
-  bucket_sum_kernel<<<nblocks(nchunks, T), T, 0, (cudaStream_t)stream>>>(
-      mode, (const int32_t*)px, (const int32_t*)py, (const int32_t*)p3,
-      (const long long*)idx, (const long long*)start, (const long long*)len, nchunks, nsrc,
-      (int32_t*)ox, (int32_t*)oy, (int32_t*)oz);
-  TZK_LAUNCH_CHECK();
-}
-
-extern "C" int tzk_msm_window_reduce(const void* bx, const void* by, const void* bz,
-                                     long long nwin, long long nb, int seg, void* ox,
-                                     void* oy, void* oz, void* stream) {
-  long long total = nwin * (nb / seg);
-  if (total <= 0) return 0;
-  const int T = 128;
-  window_reduce_kernel<<<nblocks(total, T), T, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)bx, (const int32_t*)by, (const int32_t*)bz, nwin, nb, seg,
-      (int32_t*)ox, (int32_t*)oy, (int32_t*)oz);
   TZK_LAUNCH_CHECK();
 }

@@ -2,8 +2,9 @@
 
 Every op takes limb-major int32 tensors in the interchange layout
 (`[L, B]`, little-endian 16-bit limbs, Montgomery form; the bit pattern of
-the JAX package's uint32 arrays).  A wrapper dispatches on the device of its
-tensor argument:
+the JAX package's uint32 arrays); K4's MSM stages take points packed
+point-major (`pack_points`), which `g1_msm_start` makes from that layout.
+A wrapper dispatches on the device of its tensor argument:
 
   * a CPU tensor goes to the op's plain PyTorch version, defined beside it;
   * a CUDA tensor launches the hand-written kernel (`csrc/*.cu`, built and
@@ -18,8 +19,8 @@ bounds it on the card, and what its design does about that):
                         BATCH_INV        chunked batch inversion (fwd + bwd)
   K3 csrc/ntt.cu        NTT              batched radix-2 NTT
   K4 csrc/g1.cu         G1_FIXED_BASE    k_i * G from a window table
-                        MSM_BUCKET_SUM   bounded-chunk bucket sums
-                        MSM_WINDOW       sum_b b * B_b per window segment
+     csrc/msm.cu        MSM_BUCKET_SUM   bounded-chunk bucket sums
+                        MSM_WINDOW       sum_b b * B_b, one level of segments
   K5 csrc/g1_affine.cu  AFF_PRE          affine-add slope denominators
                         AFF_POST         affine add from the inverted ones
 
@@ -63,8 +64,8 @@ FIELD_INV = Kernel("field_inv", "field_inv.cu", f"{_PK}:382")
 BATCH_INV = Kernel("batch_inv", "field_inv.cu", f"{_PK}:448")
 NTT = Kernel("ntt", "ntt.cu", f"{_PK}:640")
 G1_FIXED_BASE = Kernel("g1_fixed_base", "g1.cu", f"{_PK}:961")
-MSM_BUCKET_SUM = Kernel("msm_bucket_sum", "g1.cu", f"{_PK}:1254")
-MSM_WINDOW = Kernel("msm_window_reduce", "g1.cu", f"{_PK}:1408")
+MSM_BUCKET_SUM = Kernel("msm_bucket_sum", "msm.cu", f"{_PK}:1254")
+MSM_WINDOW = Kernel("msm_window_reduce", "msm.cu", f"{_PK}:1408")
 AFF_PRE = Kernel("aff_pre", "g1_affine.cu", f"{_PK}:1055")
 AFF_POST = Kernel("aff_post", "g1_affine.cu", f"{_PK}:1096")
 KERNELS = (FR_EW, FQ_EW, FIELD_INV, BATCH_INV, NTT, G1_FIXED_BASE, MSM_BUCKET_SUM,
@@ -679,8 +680,41 @@ def g1_fixed_base(scalars, tx, ty, tinf):
 
 
 # ---------------------------------------------------------------------------
-# K4: MSM device stages
+# K4: MSM device stages (csrc/msm.cu)
 # ---------------------------------------------------------------------------
+
+MSM_CHUNK = 32  # entries per thread in one bucket-sum pass
+MSM_SEG = 16  # buckets per thread in the first window-reduce level
+MSM_SEG_UP = 2  # segment totals per thread in the levels above it
+AFF_WORDS = 2 * (FQ_L // 2)  # an affine point: X then Y, 12 words each
+JAC_WORDS = 3 * (FQ_L // 2)  # a jacobian point: X, Y, Z
+
+
+def pack_points(*coords):
+    """Limb-major [24, n] int32 coordinates -> point-major [n, 12 * k] int32
+    words (two 16-bit limbs a word, low limb first; the coordinates of a
+    point one after another), the layout of K4's MSM stages."""
+    words = torch.cat([c[0::2] | (c[1::2] << 16) for c in coords])
+    return words.t().contiguous()
+
+
+def unpack_points(packed, k: int):
+    """Inverse of `pack_points`: [n, 12 * k] words -> k limb-major [24, n]."""
+    w = packed.t()
+    limbs = torch.stack([w & 0xFFFF, (w >> 16) & 0xFFFF], 1).reshape(2 * w.shape[0], -1)
+    return tuple(limbs[FQ_L * i: FQ_L * (i + 1)].contiguous() for i in range(k))
+
+
+def _check_packed(t: torch.Tensor, words: int, name: str) -> None:
+    if t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != words or not t.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous int32 [n, {words}] tensor, got "
+                         f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
+
+
+def _check_index(*tensors) -> None:
+    for t in tensors:
+        if t is not None and (t.dtype != torch.int64 or not t.is_contiguous()):
+            raise ValueError("MSM indices and offsets must be contiguous int64 tensors")
 
 
 def _segmented_sum(ar, pts, counts):
@@ -710,86 +744,100 @@ def _segmented_sum(ar, pts, counts):
     return tuple(out)
 
 
-def plain_msm_bucket_sum(mode, px, py, p3, idx, start, length):
+def _plain_pack(pts):
+    return pack_points(*(c.to(torch.int32) for c in pts))
+
+
+def _plain_unpack(packed, k):
+    return tuple(c.to(torch.int64) for c in unpack_points(packed, k))
+
+
+def plain_msm_bucket_sum(mode, pts, idx, start, length):
     """Plain version of the bucket-sum kernel: chunk c sums entries
-    [start[c], start[c] + length[c])."""
-    dev = px.device
+    [start[c], start[c] + length[c]); -> packed jacobian [nchunks, 36]."""
+    dev = pts.device
     nch = start.shape[0]
     chunk = torch.repeat_interleave(torch.arange(nch, device=dev), length)
     first = torch.cumsum(length, 0) - length
     ent = start[chunk] + torch.arange(chunk.shape[0], device=dev) - first[chunk]
-    if mode == 0:
-        src = idx[ent]
-        X = px[:, src].to(torch.int64)
-        Y = py[:, src].to(torch.int64)
-        one = _PLAIN.one(X.shape[1], dev)
-        Z = torch.where((p3[src] == 0)[None, :], one, torch.zeros_like(one))
+    if mode == 0:  # finite affine points (the plan dropped the infinite ones)
+        X, Y = _plain_unpack(pts[idx[ent]], 2)
+        P = (X, Y, _PLAIN.one(X.shape[1], dev))
     else:
-        X, Y, Z = (c[:, ent].to(torch.int64) for c in (px, py, p3))
-    out = _segmented_sum(_PLAIN, (X, Y, Z), length)
-    return tuple(c.contiguous().to(torch.int32) for c in out)
+        P = _plain_unpack(pts[ent], 3)
+    return _plain_pack(_segmented_sum(_PLAIN, P, length))
 
 
-def msm_bucket_sum(mode, px, py, p3, idx, start, length):
-    """Sum chunks of points: mode 0 gathers affine points idx[e] of
-    (px, py, pinf = p3), mode 1 reads jacobian points e of (px, py, pz = p3).
-    start, length: int64 [nchunks].  -> jacobian [24, nchunks] x 3."""
-    _check(px, FQ_L, "px")
-    _check(py, FQ_L, "py")
-    if not on_card(px, py, p3, start, length):
-        return plain_msm_bucket_sum(mode, px, py, p3, idx, start, length)
+def msm_bucket_sum(mode, pts, idx, start, length):
+    """Sum chunks of points: mode 0 gathers the finite affine points idx[e]
+    of `pts` ([n, 24] words), mode 1 reads the jacobian points e of `pts`
+    ([n, 36] words); chunk c covers entries [start[c], start[c] + length[c]),
+    length >= 1.  -> packed jacobian [nchunks, 36]."""
+    _check_packed(pts, AFF_WORDS if mode == 0 else JAC_WORDS, "pts")
+    _check_index(idx, start, length)
+    if not on_card(*(t for t in (pts, idx, start, length) if t is not None)):
+        return plain_msm_bucket_sum(mode, pts, idx, start, length)
     nch = start.shape[0]
-    out = [torch.empty((FQ_L, nch), dtype=torch.int32, device=px.device) for _ in range(3)]
+    out = torch.empty((nch, JAC_WORDS), dtype=torch.int32, device=pts.device)
     if nch == 0:
-        return tuple(out)
-    build.call("g1", "tzk_msm_bucket_sum", mode, _ptr(px), _ptr(py), _ptr(p3.contiguous()),
-               _ptr(idx), _ptr(start), _ptr(length), nch, px.shape[1],
-               *[_ptr(o) for o in out], _stream(px))
+        return out
+    # threads take the chunks longest first, so a warp's chunks match in length
+    order = torch.argsort(length, descending=True, stable=True)
+    build.call("msm", "tzk_msm_bucket_sum", mode, _ptr(pts), _ptr(idx), _ptr(start),
+               _ptr(length), _ptr(order), nch, _ptr(out), _stream(pts))
     MSM_BUCKET_SUM.launches += 1
-    return tuple(out)
+    return out
 
 
-def plain_msm_window_reduce(bx, by, bz, nwin, nb, seg):
-    """Plain version of the window-reduce kernel: segment (w, s) ->
-    sum over its buckets of b * B_b, b the bucket's digit."""
-    dev = bx.device
-    weight = torch.arange(nb, device=dev).repeat(nwin)
-    live = torch.nonzero((bz != 0).any(0) & (weight > 0)).squeeze(1)
-    pts = tuple(c[:, live].to(torch.int64) for c in (bx, by, bz))
-    w = weight[live]
-    acc = [c.clone() for c in _inf(_PLAIN, live.shape[0], dev)]
-    for bit in range(max(nb - 1, 1).bit_length() - 1, -1, -1):
-        d = torch.nonzero((w >> (bit + 1)) != 0).squeeze(1)
-        for c, v in zip(acc, jac_dbl(_PLAIN, tuple(c[:, d] for c in acc))):
-            c[:, d] = v
+def _small_multiples(ar, pts, w):
+    """w_i * P_i for small non-negative w (double-and-add over w's bits)."""
+    acc = [c.clone() for c in _inf(ar, w.shape[0], w.device)]
+    top = int(w.max()).bit_length() if w.numel() else 0
+    for bit in range(top - 1, -1, -1):
+        acc = list(jac_dbl(ar, acc))  # infinity (Z = 0) stays infinity
         a = torch.nonzero((w >> bit) & 1).squeeze(1)
-        s = jac_add(_PLAIN, tuple(c[:, a] for c in acc), tuple(c[:, a] for c in pts))
+        s = jac_add(ar, tuple(c[:, a] for c in acc), tuple(c[:, a] for c in pts))
         for c, v in zip(acc, s):
             c[:, a] = v
-    counts = torch.bincount(live // seg, minlength=nwin * (nb // seg))
-    out = _segmented_sum(_PLAIN, acc, counts)
-    return tuple(c.contiguous().to(torch.int32) for c in out)
+    return tuple(acc)
 
 
-def msm_window_reduce(bx, by, bz, nwin, nb, seg):
-    """Dense buckets [24, nwin * nb] (bucket 0 empty) -> per segment of `seg`
-    buckets, sum b * B_b: jacobian [24, nwin * nb / seg] x 3."""
-    for t, n in ((bx, "bx"), (by, "by"), (bz, "bz")):
-        _check(t, FQ_L, n)
-    if nb % seg:
-        raise ValueError("seg must divide the bucket count")
-    if not on_card(bx, by, bz):
-        return plain_msm_window_reduce(bx, by, bz, nwin, nb, seg)
-    n_out = nwin * (nb // seg)
-    out = [torch.empty((FQ_L, n_out), dtype=torch.int32, device=bx.device) for _ in range(3)]
-    build.call("g1", "tzk_msm_window_reduce", _ptr(bx), _ptr(by), _ptr(bz), nwin, nb, seg,
-               *[_ptr(o) for o in out], _stream(bx))
+def plain_msm_window_reduce(sums, rsum, keys, nseg, seg, shift):
+    """Plain version of one window-reduce level: segment t of the buckets
+    (keys in [t seg, (t + 1) seg)) -> R_t = sum rsum + sum (b - t seg) B_b,
+    by a weighted segmented sum, and S_t = 2^shift sum B_b."""
+    seg_id = keys // seg
+    counts = torch.bincount(seg_id, minlength=nseg)
+    B = _plain_unpack(sums, 3)
+    R = _segmented_sum(_PLAIN, _small_multiples(_PLAIN, B, keys - seg_id * seg), counts)
+    if rsum is not None:
+        R = jac_add(_PLAIN, R, _segmented_sum(_PLAIN, _plain_unpack(rsum, 3), counts))
+    S = _segmented_sum(_PLAIN, B, counts)
+    for _ in range(shift):
+        S = jac_dbl(_PLAIN, S)
+    return _plain_pack(R), _plain_pack(S)
+
+
+def msm_window_reduce(sums, rsum, keys, nseg, seg, shift):
+    """One level of the window reduce.  sums: packed jacobian bucket sums
+    [m, 36] under ascending keys [m] (key = window * nb + digit, seg | nb);
+    rsum: None or [m, 36], the level below's R.  -> packed (R, S), each
+    [nseg, 36]: per segment of `seg` keys, R = sum rsum + sum (b - lo) B_b
+    and S = 2^shift sum B_b."""
+    _check_packed(sums, JAC_WORDS, "sums")
+    if rsum is not None:
+        _check_packed(rsum, JAC_WORDS, "rsum")
+    _check_index(keys)
+    if not on_card(*(t for t in (sums, rsum, keys) if t is not None)):
+        return plain_msm_window_reduce(sums, rsum, keys, nseg, seg, shift)
+    dev = sums.device
+    off = torch.searchsorted(keys, torch.arange(nseg + 1, device=dev) * seg)
+    out_r, out_s = (torch.empty((nseg, JAC_WORDS), dtype=torch.int32, device=dev)
+                    for _ in range(2))
+    build.call("msm", "tzk_msm_window_reduce", _ptr(sums), _ptr(rsum), _ptr(keys), _ptr(off),
+               nseg, seg, shift, _ptr(out_r), _ptr(out_s), _stream(sums))
     MSM_WINDOW.launches += 1
-    return tuple(out)
-
-
-MSM_CHUNK = 32  # points per thread in one bucket-sum pass
-MSM_SEG = 64  # buckets per thread in the window reduce
+    return out_r, out_s
 
 
 def msm_window_bits(n: int) -> int:
@@ -824,23 +872,48 @@ def chunk_segments(counts):
     return start, length, nch
 
 
-def segment_sums(bucket_sum, mode, px, py, p3, idx, counts):
-    """One jacobian sum per segment of consecutive entries: bounded chunks
-    per pass, then the chunk partials again, until every segment is one
-    point."""
+def segment_sums(bucket_sum, mode, pts, idx, counts):
+    """One packed jacobian sum per segment of consecutive entries: bounded
+    chunks per pass, then the chunk partials again, until every segment is
+    one point."""
     while True:
         start, length, nch = chunk_segments(counts)
-        px, py, p3 = bucket_sum(mode, px, py, p3, idx, start, length)
+        pts = bucket_sum(mode, pts, idx, start, length)
         if start.shape[0] == counts.shape[0]:
-            return px, py, p3
+            return pts
         mode, idx, counts = 1, None, nch
+
+
+def window_sums(window_reduce, sums, keys, nwin: int, nb: int, seg: int = MSM_SEG,
+                seg_up: int = MSM_SEG_UP):
+    """Bucket sums (packed, ascending keys window * nb + digit) -> one packed
+    jacobian point per window, sum_b b * B_b.  With lo = s seg the first
+    digit of segment s, sum_b b B_b = sum_s R_s + sum_s s (seg S_s): each
+    level of `window_reduce` passes its scaled segment totals up as the next
+    level's buckets and its R's as the next level's rsum, until one segment
+    spans a window.  The first level takes `seg` buckets a thread; the
+    levels above are small and bound by one thread's chain of dependent
+    adds, so they take `seg_up` totals a thread (powers of two)."""
+    rsum = None
+    while True:
+        seg = min(seg, nb)
+        nseg = nwin * nb // seg
+        last = nseg == nwin
+        rsum, sums = window_reduce(sums, rsum, keys, nseg, seg,
+                                   0 if last else seg.bit_length() - 1)
+        if last:
+            return rsum
+        nb //= seg
+        keys = torch.arange(nseg, device=keys.device)
+        seg = seg_up
 
 
 def msm_plan(scalars, pinf):
     """Window size, digits and the sorted (window, bucket) entries of an MSM:
     -> (c, nwin, point index per entry, bucket key per run, run lengths).
-    Tensor ops on the input's device, as the JAX package leaves its digit
-    sort to XLA."""
+    Entries with a zero digit or an infinite point are dropped here.  Tensor
+    ops on the input's device, as the JAX package leaves its digit sort to
+    XLA."""
     dev = scalars.device
     N = pinf.shape[0]
     c = msm_window_bits(N)
@@ -860,18 +933,11 @@ def msm_plan(scalars, pinf):
 def _msm_windows(scalars, px, py, pinf, bucket_sum, window_reduce):
     dev = px.device
     c, nwin, pidx, bucket, counts = msm_plan(scalars, pinf)
-    nb = 1 << c
     if pidx.numel() == 0:
         return (_inf(_OPS_FQ, nwin, dev), c)
-    bx, by, bz = segment_sums(bucket_sum, 0, px.contiguous(), py.contiguous(),
-                              pinf.to(torch.int32).contiguous(), pidx, counts)
-    dense = [t.clone() for t in _inf(_OPS_FQ, nwin * nb, dev)]
-    for d, v in zip(dense, (bx, by, bz)):
-        d[:, bucket] = v
-    seg = min(MSM_SEG, nb)
-    sx, sy, sz = window_reduce(*dense, nwin, nb, seg)
-    per = torch.full((nwin,), nb // seg, dtype=torch.int64, device=dev)
-    return (segment_sums(bucket_sum, 1, sx, sy, sz, None, per), c)
+    sums = segment_sums(bucket_sum, 0, pack_points(px, py), pidx, counts)
+    del pidx
+    return (unpack_points(window_sums(window_reduce, sums, bucket, nwin, 1 << c), 3), c)
 
 
 def g1_msm_start(scalars, px, py, pinf):

@@ -4,10 +4,12 @@ kernels that take the device time.
     python -m tokamak_zk_evm_tpu_torch.utils.profile_prove [--core NAME] [--out DIR]
 
 Builds `build_synthetic()` at its defaults, runs setup and one untraced
-prove (so every kernel is built and warm), then traces a second prove with
-`torch.profiler` and prints one JSON line: the prove's wall seconds, the
-device busy seconds (union of the CUDA activity intervals), the busy share,
-and the ten CUDA kernels with the most device time.  `--out DIR` also writes
+prove (so every kernel is built and warm), builds a second Prover outside
+the traced window, then traces its `prove()` alone with `torch.profiler`
+and prints one JSON line: the prove's wall seconds, the device busy seconds
+(union of the CUDA activity intervals), the busy share, and the device
+seconds of every CUDA kernel, most first, all of `prove()` and nothing of
+Prover init.  `--out DIR` also writes
 the Chrome trace there; `--core` picks the MSM core both proves run on
 (`ops.msm.use_core`: "pippenger", the default, or "affine_tree").  Needs a
 CUDA device.
@@ -55,27 +57,30 @@ def main() -> None:
     p = fx.params
     sigma = generate_sigma(p, Tau.fixed(), fx.library, fx.infos, device="cuda")
 
-    def prove():
-        prover = Prover(p, sigma, fx.library, fx.infos, fx.placements, fx.permutation,
-                        fx.instance, mixer=Mixer.random(np.random.default_rng(3)),
-                        device="cuda")
+    def prover():
+        out = Prover(p, sigma, fx.library, fx.infos, fx.placements, fx.permutation,
+                     fx.instance, mixer=Mixer.random(np.random.default_rng(3)), device="cuda")
         torch.cuda.synchronize()
+        return out
+
+    def prove(pr):
         t0 = time.perf_counter()
         with msm.use_core(args.core):
-            prover.prove()
+            pr.prove()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    prove()
+    prove(prover())
+    pr = prover()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = prove()
+        wall = prove(pr)
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in dev]) / 1e6
     by_name: dict[str, float] = {}
     for e in dev:
         name = e.name.replace("(anonymous namespace)::", "").split("(")[0][:80]
         by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.out, "prove_trace.json"))
@@ -85,7 +90,7 @@ def main() -> None:
         "prove_wall_s": wall,
         "device_busy_s": busy,
         "busy_share": busy / wall if wall else None,
-        "top_kernels_s": dict(top),
+        "kernels_s": dict(ranked),
     }))
 
 
