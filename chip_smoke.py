@@ -11,12 +11,18 @@ Phases, in order (any mismatch or exception exits non-zero):
      (one nvcc per source, all at once), print each kernel's ptxas registers
      and stack frame, and require that the MSM build reports exactly its
      three stage kernels (the bucket sum's two passes and the window
-     reduce), each with no stack frame and no spills;
+     reduce), the NTT build its pass kernel and the G1 build its fixed-base
+     kernel, each with no stack frame and no spills;
   3. each kernel against its plain PyTorch version on the card, exact:
      K1/K2 on Fr and Fq batches holding 0, 1 and p-1; K3 forward and inverse
-     at 16384 x 512 (and a coset round trip); K4 fixed-base and MSM at 2^12
-     with repeated points, infinities and zero scalars; the MSM at 2^22
-     against the O(1) oracle sum k_i (c_i G) = (sum k_i c_i) G;
+     along both axes of a 16384 x 512 grid, on transforms past 16384 points
+     (rows of 2^20, columns of 2^18), and a coset round trip (K1 and K3); K4
+     fixed-base at 2^12 with planted scalars (0, 1, r-1, all-ones digits, a
+     nonzero top window alone, repeats) on the 12-bit table built on the
+     card, against the plain version on the 8-bit table and host scalar
+     muls, and a sample of the 12-bit table against host scalar muls; the
+     MSM at 2^12 with repeated points, infinities and zero scalars; the MSM
+     at 2^22 against the O(1) oracle sum k_i (c_i G) = (sum k_i c_i) G;
   3b. K5's affine-add pair against its plain versions at 2^20 lanes, exact,
      with every case planted (P+Q, P+P, P+(-P), inf+Q, P+inf, inf+inf), and
      a sample of lanes against host curve adds;
@@ -26,26 +32,34 @@ Phases, in order (any mismatch or exception exits non-zero):
      m_i=4096) on the default MSM core ("pippenger"): generate_sigma ->
      Prover.prove() -> preprocess -> verify_snark(), with every kernel's
      launch counter set to 0 just before and read just after; every kernel
-     of that path must have launched, and K5 not at all;
+     of that path must have launched, and K5 not at all.  The run records
+     each distinct call of K3 (grid, axis, tables) and the fixed-base op's
+     batch sizes;
+  5c. K3 against its plain version at every call signature phase 5
+     recorded, on random grids of those shapes, exact;
   5b. the second MSM core, "affine_tree" (`ops.msm.use_core`): one 2^22-point
      MSM against the Pippenger and the O(1) oracle, then phase 5's path again
      on the same CRS (counters set to 0 before, read after): its proof bytes
      must equal phase 5's, it must verify, and K5 and the batch inversion
      must have launched while K4's MSM stages did not;
   6. each kernel at the main path's shapes: held against its plain version
-     there (every output of K1, K2, K3, K5, the fixed-base kernel and every
+     there (every output of K1, K2, K3 on both axes, K5, the fixed-base
+     kernel at 2^22 (against the plain version on the 8-bit table) and every
      level of the window reduce; every 64th chunk of both passes of the
      2^22-point bucket sum, the affine pass and the jacobian pass over its
      partials, for uniform and for skewed, witness-like scalars, all of it at
-     2^16), then timed beside the plain version and its bound; the skewed
-     2^22-point MSM is held against the O(1) oracle too, and the window
-     reduce at 8/2 buckets a thread against the default.
+     2^16), then timed beside the plain version and its bound; the
+     fixed-base kernel also at setup's other family sizes, with the 12-bit
+     table's build; the skewed 2^22-point MSM is held against the O(1)
+     oracle too, and the window reduce at 8/2 buckets a thread against the
+     default.
 The last three lines are the nvidia-smi line, the kernels JSON and the device
 JSON. The port imports nothing of JAX; neither does this script.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -66,6 +80,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 IMAD_PER_S = 64 * 132 * 1.98e9
+
+
+# kernels whose builds must report no stack frame and no spills, and no other
+# function (every device function inlined)
+PTXAS_CLEAN = {
+    "msm": ("bucket_sum_kernel_affine", "bucket_sum_kernel_jacobian", "window_reduce_kernel"),
+    "ntt": ("ntt_pass_kernel",),
+    "g1": ("fixed_base_kernel",),
+}
 
 
 def log(msg: str) -> None:
@@ -170,7 +193,6 @@ def rows_affine(rows):
 def check_kernels(torch, np, K, dev):
     from tokamak_zk_evm_tpu_torch.fields import FQ, FR, R_MOD
     from tokamak_zk_evm_tpu_torch.host.curve import G1
-    from tokamak_zk_evm_tpu_torch.ops import field as F
     from tokamak_zk_evm_tpu_torch.ops import ntt as NT
 
     rng = np.random.default_rng(1)
@@ -212,42 +234,66 @@ def check_kernels(torch, np, K, dev):
         mont_one = T(np.asarray(spec.to_limbs(spec.R_mod), np.int32)[:, None])
         expect(bool((one[:, nz] == mont_one).all()), f"{spec.name} a * a^-1 == 1")
 
-    log("[3] K3 ntt at 16384 x 512: kernel == plain, exact")
+    log("[3] K3 ntt at 16384 x 512, both axes: kernel == plain, exact")
     grid = T(rand_field(np, rng, FR, 16384 * 512).reshape(16, 16384, 512))
-    for n, batch in ((16384, 512), (512, 16384)):
-        data = (grid.transpose(1, 2) if n == 16384 else grid).contiguous()
-        data = data.reshape(16, batch, n)
+    for axis in (1, 2):
+        n = grid.shape[axis]
         for inverse in (False, True):
-            pows, scale = NT._tables(n, inverse, dev)
-            got = K.fr_ntt(data, pows, scale)
-            want = K.plain_ntt(data, pows, scale)
-            expect(torch.equal(got, want),
-                   f"n={n} batch={batch} {'inverse' if inverse else 'forward'}")
-            del got, want
+            tables = NT._tables(n, inverse, dev)
+            got = K.fr_ntt(grid, *tables, axis=axis)
+            expect(torch.equal(got, K.plain_ntt(grid, *tables, axis=axis)),
+                   f"n={n} axis {axis} {'inverse' if inverse else 'forward'}")
+            del got
+    for shape, axis in (((2, 1 << 20), 2), ((1 << 18, 16), 1)):
+        long = rand_fr(torch, shape, 13, dev)
+        for inverse in (False, True):
+            # uncached: the main path never holds tables this long, so
+            # they must not count in phase 5's peak memory
+            tables = NT._tables.__wrapped__(shape[axis - 1], inverse, dev)
+            expect(torch.equal(K.fr_ntt(long, *tables, axis=axis),
+                               K.plain_ntt(long, *tables, axis=axis)),
+                   f"n={shape[axis - 1]} axis {axis} over {list(shape)} "
+                   f"{'inverse' if inverse else 'forward'}")
+        del long
     ev = NT.bintt(grid, coset_x=7, coset_y=5)
-    expect(torch.equal(ev, plain_bintt(torch, K, F, grid, False, 7, 5)),
-           "bintt forward, cosets (7, 5): kernels == plain")
+    expect(torch.equal(ev, plain_bintt(K, NT, grid, False, 7, 5)),
+           "bintt forward, cosets (7, 5): kernel == plain")
     back = NT.bintt(ev, inverse=True, coset_x=7, coset_y=5)
-    expect(torch.equal(back, plain_bintt(torch, K, F, ev, True, 7, 5)),
-           "bintt inverse, cosets (7, 5): kernels == plain")
+    expect(torch.equal(back, plain_bintt(K, NT, ev, True, 7, 5)),
+           "bintt inverse, cosets (7, 5): kernel == plain")
     expect(torch.equal(back, grid), "bintt coset (7, 5) inverse undoes forward")
     del grid, ev, back
     torch.cuda.empty_cache()
 
-    log("[3] K4 g1_fixed_base at 2^12: kernel == plain (same affine points)")
+    log("[3] K4 g1_fixed_base at 2^12: kernel on the 12-bit table == plain on the 8-bit one "
+        "(affine points)")
+    t0 = time.perf_counter()
+    wide = K.fixed_base_table(*G1.gen, dev)
+    torch.cuda.synchronize()
+    log(f"  12-bit table {tuple(wide.shape)} built on the card in "
+        f"{time.perf_counter() - t0:.3f} s (with the 8-bit host table)")
     n = 1 << 12
     sc = rand_field(np, rng, FR, n)
-    sc[:, :3] = 0
-    sc[:, 3] = FR.to_limbs(1)
-    sc[:, 4] = FR.to_limbs(R_MOD - 1)
+    planted = [0, 1, R_MOD - 1, (1 << 252) - 1] + [d << 252 for d in range(1, 8)]
+    for i, k in enumerate(planted):  # zero, one, r - 1, all-ones digits, top window only
+        sc[:, i] = FR.to_limbs(k)
+    sc[:, 100:164] = sc[:, 20:21]  # one scalar repeated
     sc = T(sc)
-    tx, ty, tinf = K.fixed_base_table(*G1.gen, dev)
-    got = affine_host(K.g1_fixed_base(sc, tx, ty, tinf))
-    want = affine_host(K.plain_g1_fixed_base(sc, tx, ty, tinf))
-    expect(got == want, "fixed-base 4096 scalars")
-    host = [FR.from_limbs(sc[:, i].tolist()) for i in range(8)]
-    expect(got[:8] == [G1.to_affine(G1.scalar_mul(G1.from_affine(G1.gen), k)) for k in host],
+    got = affine_host(K.g1_fixed_base(sc, wide))
+    want = affine_host(K.plain_g1_fixed_base(sc, K.fixed_base_table(*G1.gen, dev, 8), 8))
+    expect(got == want, "fixed-base 4096 scalars, planted")
+    host = [FR.from_limbs(sc[:, i].tolist()) for i in range(16)]
+    expect(got[:16] == [G1.to_affine(G1.scalar_mul(G1.from_affine(G1.gen), k)) for k in host],
            "fixed-base agrees with host scalar muls")
+    X, Y = (c.cpu() for c in K.unpack_points(wide, 2))
+    entries = [0, 1, 4095, 4096, 21 * 4096 + 7] + rng.integers(0, 22 * 4096, 16).tolist()
+    ok = True
+    for e in entries:
+        w, d = divmod(int(e), 4096)
+        x, y = (FQ.from_mont(FQ.from_limbs(c[:, e].tolist())) for c in (X, Y))
+        want = G1.to_affine(G1.scalar_mul(G1.from_affine(G1.gen), (d << (12 * w)) % R_MOD))
+        ok &= (None if x == y == 0 else (x, y)) == want
+    expect(ok, f"12-bit table == host scalar muls on {len(entries)} entries")
 
     log("[3] K4 MSM at 2^12: kernel == plain == oracle")
     msm_oracle_check(torch, np, K, dev, rng, 1 << 12, plain=True)
@@ -255,27 +301,26 @@ def check_kernels(torch, np, K, dev):
     msm_oracle_check(torch, np, K, dev, rng, 1 << 22, plain=False)
 
 
-def plain_bintt(torch, K, F, grid, inverse, cx, cy):
-    """ops.ntt.bintt with the plain versions of K1 (coset scaling) and K3."""
+def plain_bintt(K, NT, grid, inverse, cx, cy):
+    """ops.ntt.bintt through the plain versions of K1 and K3: each axis's
+    coset table multiplies before a forward transform, its inverse after an
+    inverse one."""
     from tokamak_zk_evm_tpu_torch.fields import R_MOD
-    from tokamak_zk_evm_tpu_torch.ops import ntt as NT
 
-    def batched(a, coset):
-        L, rows, n = a.shape
-        flat = a.reshape(L, -1)
-        c = pow(coset, -1, R_MOD) if inverse else coset
-        pw = F.tensor(F.fr_powers(c, n), a.device)
-        if not inverse:
-            flat = K.plain_field_ew(0, "mul", flat, pw)
-        pows, scale = NT._tables(n, inverse, a.device)
-        out = K.plain_ntt(flat.reshape(L, rows, n), pows, scale).reshape(L, -1)
-        if inverse:
-            out = K.plain_field_ew(0, "mul", out, pw)
-        return out.reshape(L, rows, n)
+    for axis, c in ((2, cy), (1, cx)):
+        n = grid.shape[axis]
+        rep = grid.shape[2] if axis == 1 else 1
 
-    g = batched(grid, cy)
-    g = batched(g.transpose(1, 2).contiguous(), cx)
-    return g.transpose(1, 2).contiguous()
+        def times(g, v):
+            t = NT._coset_table(n, v, g.device)
+            return K.plain_field_ew(0, "mul", g.reshape(16, -1), t, rep).reshape(g.shape)
+
+        if c is not None and not inverse:
+            grid = times(grid, c)
+        grid = K.plain_ntt(grid, *NT._tables(n, inverse, grid.device), axis=axis)
+        if c is not None and inverse:
+            grid = times(grid, pow(c, -1, R_MOD))
+    return grid
 
 
 def oracle_inputs(torch, np, K, dev, rng, n, skew=False):
@@ -291,8 +336,8 @@ def oracle_inputs(torch, np, K, dev, rng, n, skew=False):
     c[rng.integers(0, n, size=17)] = 0
     cl = np.zeros((16, n), np.int32)
     cl[0] = c
-    tx, ty, tinf = K.fixed_base_table(*G1.gen, dev)
-    px, py, pinf = K.g1_to_affine(K.g1_fixed_base(torch.as_tensor(cl, device=dev), tx, ty, tinf))
+    table = K.fixed_base_table(*G1.gen, dev)
+    px, py, pinf = K.g1_to_affine(K.g1_fixed_base(torch.as_tensor(cl, device=dev), table))
     k = rand_field(np, rng, FR, n)
     if skew:
         k[:] = 0
@@ -330,12 +375,12 @@ def planted_affine(torch, np, K, dev, rng, n, mix):
     mix "add": every lane P+Q."""
     from tokamak_zk_evm_tpu_torch.host.curve import G1
 
-    tx, ty, tinf = K.fixed_base_table(*G1.gen, dev)
+    table = K.fixed_base_table(*G1.gen, dev)
 
     def points(v):
         cl = np.zeros((16, n), np.int32)
         cl[0], cl[1] = v & 0xFFFF, v >> 16
-        x, y, _ = K.g1_to_affine(K.g1_fixed_base(torch.as_tensor(cl, device=dev), tx, ty, tinf))
+        x, y, _ = K.g1_to_affine(K.g1_fixed_base(torch.as_tensor(cl, device=dev), table))
         return x, y
 
     a = rng.integers(1, 1 << 31, size=n, dtype=np.int64)
@@ -479,6 +524,57 @@ def expect_launches(counts, ran, idle, path):
         expect(counts[name] == 0, f"kernel {name} not launched on the {path}")
 
 
+@contextlib.contextmanager
+def recording(K):
+    """Record, inside the block, the distinct calls of K3 (grid shape, axis
+    and tables) and the batch sizes of the fixed-base op, as the entry
+    points make them (`ops` calls both through the module)."""
+    calls = {"ntt": {}, "fixed_base": set()}
+    fr_ntt, fixed_base = K.fr_ntt, K.g1_fixed_base
+
+    def ntt(data, pows, scale=None, axis=2, inplace=False):
+        key = (tuple(data.shape), axis, inplace) + tuple(
+            None if t is None else t.data_ptr() for t in (pows, scale))
+        calls["ntt"].setdefault(key, (tuple(data.shape), axis, inplace, pows, scale))
+        return fr_ntt(data, pows, scale, axis, inplace)
+
+    def fixed(scalars, table):
+        calls["fixed_base"].add(int(scalars.shape[1]))
+        return fixed_base(scalars, table)
+
+    K.fr_ntt, K.g1_fixed_base = ntt, fixed
+    try:
+        yield calls
+    finally:
+        K.fr_ntt, K.g1_fixed_base = fr_ntt, fixed_base
+
+
+def rand_fr(torch, shape, seed, dev):
+    """Random reduced Fr limbs [16, *shape] made on the card."""
+    from tokamak_zk_evm_tpu_torch.fields import FR
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lim = torch.randint(0, 1 << 16, (16,) + tuple(shape), generator=g, device=dev,
+                        dtype=torch.int32)
+    lim[15] = torch.randint(0, FR.modulus >> 240, tuple(shape), generator=g, device=dev,
+                            dtype=torch.int32)
+    return lim
+
+
+def check_ntt_calls(torch, K, dev, calls):
+    """K3 against its plain version at every recorded call signature, on
+    random grids of the recorded shapes."""
+    for seed, (shape, axis, inplace, pows, scale) in enumerate(calls.values()):
+        kind = "inverse" if scale is not None else "forward"
+        data = rand_fr(torch, shape[1:], seed, dev)
+        want = K.plain_ntt(data, pows, scale, axis)
+        got = K.fr_ntt(data, pows, scale, axis, inplace)
+        expect(torch.equal(got, want), f"K3 grid {list(shape[1:])} axis {axis} ({kind}"
+               f"{', in place' if inplace else ''}): kernel == plain")
+        del data, got, want
+    torch.cuda.empty_cache()
+
+
 def affine_msm_check(torch, np, K, dev, n=1 << 22):
     """One n-point MSM through the affine tree == Pippenger == oracle."""
     from tokamak_zk_evm_tpu_torch.ops import msm as TM
@@ -612,7 +708,28 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = PEAK_OPS_PER_S):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def measure(torch, np, K, dev, counts):
+def fixed_base_adds(torch, K, sc, bits: int) -> int:
+    """The mixed adds of the fixed-base op on canonical scalars [16, B] that
+    cost products: one a nonzero `bits`-bit digit, but the first of each
+    scalar, which lands on an accumulator at infinity and is a copy."""
+    s = sc.long()
+    s = torch.cat([s, torch.zeros_like(s[:1])])
+    total, live = 0, torch.zeros_like(s[0], dtype=torch.bool)
+    for w in range(K.fixed_base_windows(bits)):
+        o = bits * w
+        d = ((s[o // 16] | (s[o // 16 + 1] << 16)) >> (o % 16)) & ((1 << bits) - 1)
+        total += int(d.ne(0).sum())
+        live |= d.ne(0)
+    return total - int(live.sum())
+
+
+def ntt_products(n: int, transforms: int) -> int:
+    """Fr products of `transforms` radix-2 transforms of n points: n / 2 a
+    stage, but the first, whose twiddles are all one."""
+    return transforms * (n // 2) * (n.bit_length() - 2)
+
+
+def measure(torch, np, K, dev, counts, fixed_sizes):
     from tokamak_zk_evm_tpu_torch.fields import FQ, FR
     from tokamak_zk_evm_tpu_torch.host.curve import G1
     from tokamak_zk_evm_tpu_torch.ops import ntt as NT
@@ -670,23 +787,84 @@ def measure(torch, np, K, dev, counts):
     row(K.BATCH_INV, "Fr batch inverse 2^20", lambda: K.batch_inv(0, a),
         lambda: K.plain_batch_inv(0, a), 2 * 64 * n, 3 * FR_MUL_OPS * n)
     del a
-    nn, batch = 16384, 512  # the X pass of prove2's largest bivariate NTT
-    data = T(rand_field(np, rng, FR, nn * batch).reshape(16, batch, nn))
-    pows, scale = NT._tables(nn, False, dev)
-    bf = batch * (nn // 2) * 14
-    row(K.NTT, "16384 x 512 (n=16384)", lambda: K.fr_ntt(data, pows, scale),
-        lambda: K.plain_ntt(data, pows, scale), 2 * 64 * nn * batch,
-        (bf + nn * batch) * FR_MUL_OPS)
-    del data
+    # prove2's largest bivariate grid, [16, 16384, 512]: its X pass (axis 1,
+    # n = 16384, two passes), its Y pass (axis 2, n = 512, one), and the same
+    # 16384-point rows laid along axis 2 ([16, 512, 16384]).  Bound: the grid
+    # read once and written once, one product a butterfly but on the first
+    # stage (the forward transform applies no scale; the two-pass kernel
+    # does n / 2 more a transform, its four-step twiddles).
+    nn, batch = 16384, 512
+    grid = rand_fr(torch, (nn, batch), 11, dev)
+    tables = NT._tables(nn, False, dev)
+    grid_bytes = 2 * 64 * nn * batch
+    bf = ntt_products(nn, batch)
+    row(K.NTT, "16384 x 512, axis 1 (n=16384)", lambda: K.fr_ntt(grid, *tables, axis=1),
+        lambda: K.plain_ntt(grid, *tables, axis=1), grid_bytes, bf * FR_MUL_OPS)
+    rows_t = grid.transpose(1, 2).contiguous()
+    y_tables = NT._tables(batch, False, dev)
+    for key, shape, fn, plain, ops in (
+            ("axis2_n512", "16384 x 512, axis 2 (n=512)",
+             lambda: K.fr_ntt(grid, *y_tables, axis=2),
+             lambda: K.plain_ntt(grid, *y_tables, axis=2), ntt_products(batch, nn)),
+            ("axis2_n16384", "512 x 16384, axis 2 (n=16384)",
+             lambda: K.fr_ntt(rows_t, *tables, axis=2),
+             lambda: K.plain_ntt(rows_t, *tables, axis=2), bf)):
+        err = limbs_err(fn(), plain())
+        expect(err == 0, f"ntt {shape}: kernel == plain (max_abs_err {err})")
+        ms = cuda_ms(torch, fn)
+        b, by = bound_ms(grid_bytes, ops * FR_MUL_OPS)
+        rows[-1].update({f"{key}_shape": shape, f"{key}_ms": round(ms, 4),
+                         f"{key}_max_abs_err": err, f"{key}_bound_ms": round(b, 4),
+                         f"{key}_imad_bound_ms": round(
+                             bound_ms(grid_bytes, ops * FR_MUL_OPS, IMAD_PER_S)[0], 4)})
+        log(f"  {K.NTT.name:18s} {shape:28s} {ms:10.3f} ms  bound {b:8.4f} ms ({by})")
+    del grid, rows_t
     torch.cuda.empty_cache()
-    n = 1 << 22  # setup's largest fixed-base family (xy_powers, 8192 x 512)
-    sc = T(rand_field(np, rng, FR, n))
-    tx, ty, tinf = K.fixed_base_table(*G1.gen, dev)
-    digits = sum(int(((sc[w // 2] >> (8 * (w % 2))) & 0xFF).ne(0).sum()) for w in range(32))
-    row(K.G1_FIXED_BASE, "2^22 scalars", lambda: K.g1_fixed_base(sc, tx, ty, tinf),
-        lambda: K.plain_g1_fixed_base(sc, tx, ty, tinf), 64 * n + 3 * 96 * n,
-        digits * MIXED_ADD_MULS * FQ_MUL_OPS, reps=3, points=True)
-    del sc
+    # The fixed-base op at setup's largest family (xy_powers, 8192 x 512 =
+    # 2^22 scalars) on the 12-bit table, held against the plain version on
+    # the 8-bit one; then at the other sizes setup gave it (phase 5), and the
+    # 12-bit table's build on the card.  Bound: scalars read, three
+    # coordinates written and the table read once; one mixed add (11
+    # products) a nonzero 12-bit digit but the first of each scalar (8-bit
+    # digits: bound_ms_8bit).
+    table = K.fixed_base_table(*G1.gen, dev)
+    table8 = K.fixed_base_table(*G1.gen, dev, 8)
+    build_ms = cuda_ms(torch, lambda: K._fixed_base_table_packed.__wrapped__(
+        *G1.gen, K.FIXED_BASE_BITS, dev.type), 3)  # on the card, then to the host
+    copy_ms = cuda_ms(torch, lambda: K.fixed_base_table(*G1.gen, dev), 3)  # to the card
+    n = 1 << 22
+    sc = rand_fr(torch, (n,), 12, dev)
+
+    def fixed_bounds(B):
+        nbytes = 64 * B + 3 * 96 * B + 96 * table.shape[0]
+        ops12 = fixed_base_adds(torch, K, sc[:, :B], 12) * MIXED_ADD_MULS * FQ_MUL_OPS
+        ops8 = fixed_base_adds(torch, K, sc[:, :B], 8) * MIXED_ADD_MULS * FQ_MUL_OPS
+        return nbytes, ops12, ops8
+
+    nbytes, ops12, ops8 = fixed_bounds(n)
+    row(K.G1_FIXED_BASE, "2^22 scalars", lambda: K.g1_fixed_base(sc, table),
+        lambda: K.plain_g1_fixed_base(sc, table8, 8), nbytes, ops12, reps=3, points=True)
+    rows[-1].update({"bound_ms_8bit": round(bound_ms(nbytes, ops8)[0], 4),
+                     "imad_bound_ms_8bit": round(bound_ms(nbytes, ops8, IMAD_PER_S)[0], 4),
+                     "window_bits": K.FIXED_BASE_BITS, "table_build_ms": round(build_ms, 4),
+                     "table_copy_ms": round(copy_ms, 4)})
+    log(f"  {'':18s} 12-bit table build {build_ms:.3f} ms, copy to the card {copy_ms:.3f} ms; "
+        f"8-bit bound {rows[-1]['bound_ms_8bit']:.4f} ms")
+    by_size = {}
+    for B in fixed_sizes:
+        if B == n or B > n:
+            continue
+        part = sc[:, :B].contiguous()
+        ms = cuda_ms(torch, lambda: K.g1_fixed_base(part, table), 3)
+        nb, o12, o8 = fixed_bounds(B)
+        by_size[B] = {"ms": round(ms, 4), "bound_ms": round(bound_ms(nb, o12)[0], 4),
+                      "imad_bound_ms": round(bound_ms(nb, o12, IMAD_PER_S)[0], 4),
+                      "bound_ms_8bit": round(bound_ms(nb, o8)[0], 4),
+                      "imad_bound_ms_8bit": round(bound_ms(nb, o8, IMAD_PER_S)[0], 4)}
+        log(f"  {K.G1_FIXED_BASE.name:18s} {f'{B} scalars':28s} {ms:10.3f} ms  "
+            f"bound {by_size[B]['bound_ms']:8.4f} ms (operations)")
+    rows[-1]["setup_family_sizes"] = by_size
+    del sc, table8
     torch.cuda.empty_cache()
     # The MSM stages at the main path's largest commitment, 2^22 points. The
     # plain bucket sum over all of its chunks would gather 2^26 points
@@ -802,14 +980,15 @@ def main() -> int:
             for line in f:
                 if any(w in line for w in ("Function properties", "stack frame", "registers")):
                     log(f"    {name}: {line.strip()}")
-    frames = ptxas_frames(os.path.join(build.BUILD_DIR, "msm.log"))
-    for kern in ("bucket_sum_kernel_affine", "bucket_sum_kernel_jacobian", "window_reduce_kernel"):
-        found = [fn for fn in frames if kern in fn]
-        expect(len(found) == 1, f"ptxas: msm.log reports {kern} once ({len(found)} found)")
-        frame = frames[found[0]]
-        expect(frame == (0, 0, 0), f"ptxas: {kern} has no stack frame and no spills {frame}")
-    expect(len(frames) == 3, f"ptxas: msm.log reports exactly the three MSM stage kernels "
-           f"({len(frames)} found)")
+    for name, kerns in PTXAS_CLEAN.items():
+        frames = ptxas_frames(os.path.join(build.BUILD_DIR, f"{name}.log"))
+        for kern in kerns:
+            found = [fn for fn in frames if kern in fn]
+            expect(len(found) == 1, f"ptxas: {name}.log reports {kern} once ({len(found)} found)")
+            frame = frames[found[0]]
+            expect(frame == (0, 0, 0), f"ptxas: {kern} has no stack frame and no spills {frame}")
+        expect(len(frames) == len(kerns), f"ptxas: {name}.log reports exactly {list(kerns)} "
+               f"({len(frames)} functions found)")
 
     check_kernels(torch, np, K, dev)
     check_affine(torch, np, K, dev)
@@ -821,9 +1000,13 @@ def main() -> int:
 
     log("[5] main path: synthetic full shape on the card, MSM core pippenger")
     fx = synthetic_fixture()
-    sigma, proof, counts = drive(torch, np, K, dev, fx, "pippenger")
+    with recording(K) as calls:
+        sigma, proof, counts = drive(torch, np, K, dev, fx, "pippenger")
     affine = [K.AFF_PRE.name, K.AFF_POST.name]
     expect_launches(counts, [n for n in counts if n not in affine], affine, "pippenger path")
+    log(f"[5c] K3 at each of the {len(calls['ntt'])} call signatures of phase 5 "
+        f"(grid, axis, tables): kernel == plain, exact")
+    check_ntt_calls(torch, K, dev, calls["ntt"])
 
     log("[5b] MSM core affine_tree: a 2^22-point MSM, then the main path again")
     msm_stats = affine_msm_check(torch, np, K, dev)
@@ -836,7 +1019,7 @@ def main() -> int:
 
     log("[6] kernel times (CUDA events) beside plain versions and bounds")
     counts.update({n: counts_b[n] for n in affine})
-    rows = measure(torch, np, K, dev, counts)
+    rows = measure(torch, np, K, dev, counts, sorted(calls["fixed_base"]))
     rows[-1]["affine_tree_msm_2^22"] = msm_stats
     kernels_line = json.dumps({"kernels": rows})
 

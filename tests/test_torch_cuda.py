@@ -61,11 +61,53 @@ def test_inversion_kernels(dev, field):
     assert torch.equal(K.batch_inv(field, a), K.plain_batch_inv(field, a))
 
 
-def test_ntt_kernel(dev):
-    data = rand(FR, 64 * 256, 4, dev).reshape(16, 64, 256)
+def plain_ntt_axis(data, axis, inverse, coset):
+    """`ops.ntt.ntt_axis` through the plain versions of K1 and K3."""
+    n = data.shape[axis]
+    rep = data.shape[2] if axis == 1 else 1
+
+    def times(g, c):
+        flat = g.reshape(16, -1)
+        return K.plain_field_ew(0, "mul", flat, NT._coset_table(n, c, g.device), rep).reshape(g.shape)
+
+    if coset is not None and not inverse:
+        data = times(data, coset)
+    out = K.plain_ntt(data, *NT._tables(n, inverse, data.device), axis)
+    return times(out, pow(coset, -1, FR.modulus)) if coset is not None and inverse else out
+
+
+@pytest.mark.parametrize("coset", [None, 7])
+@pytest.mark.parametrize("axis", [1, 2])
+@pytest.mark.parametrize("logn", range(1, 15))
+def test_ntt_kernel(dev, logn, axis, coset):
+    """K3 along either axis of [16, X, Y], one pass or two, forward and
+    inverse, into a new grid and in place, against `plain_ntt`; with a
+    coset, `ops.ntt.ntt_axis` (K1 and K3) against the plain versions of
+    both.  The other axis cycles through 1 (a univariate grid), 5, 64 and
+    512."""
+    n, other = 1 << logn, (1, 5, 64, 512)[logn % 4]
+    shape = (other, n) if axis == 2 else (n, other)
+    data = rand(FR, shape[0] * shape[1], 4 + logn, dev).reshape((16,) + shape)
     for inverse in (False, True):
-        pows, scale = NT._tables(256, inverse, dev)
-        assert torch.equal(K.fr_ntt(data, pows, scale), K.plain_ntt(data, pows, scale))
+        want = plain_ntt_axis(data, axis, inverse, coset)
+        assert torch.equal(NT.ntt_axis(data, axis, inverse, coset), want)
+        if coset is None:
+            pows, scale = NT._tables(n, inverse, dev)
+            over = data.clone()
+            assert K.fr_ntt(over, pows, scale, axis, inplace=True) is over
+            assert torch.equal(over, want)
+
+
+@pytest.mark.parametrize("shape,axis", [((4, 1 << 20), 2), ((1 << 22, 1), 1),
+                                        ((1 << 16, 64), 1), ((1 << 18, 16), 1)])
+def test_ntt_kernel_long(dev, shape, axis):
+    """Transforms past 16384 points, to the ceiling of 2^22: rows whose
+    second pass takes more than 256 points, and columns whose tiles span
+    fewer than 16 columns."""
+    data = rand(FR, shape[0] * shape[1], 40, dev).reshape((16,) + shape)
+    for inverse in (False, True):
+        pows, scale = NT._tables(data.shape[axis], inverse, dev)
+        assert torch.equal(K.fr_ntt(data, pows, scale, axis), K.plain_ntt(data, pows, scale, axis))
 
 
 def _affine_cols(packed):
@@ -75,16 +117,51 @@ def _affine_cols(packed):
             for i in range(X.shape[1])]
 
 
+def _affine_jac(P):
+    """Jacobian [24, B] x 3 -> host affine points (None = infinity)."""
+    X, Y, Z = (c.cpu() for c in P)
+    return [G1.to_affine(tuple(FQ.from_mont(FQ.from_limbs(c[:, i].tolist())) for c in (X, Y, Z)))
+            for i in range(X.shape[1])]
+
+
+def test_fixed_base_kernel(dev):
+    """The fixed-base kernel on the 12-bit table built on the card == the
+    plain version on the 8-bit table == host scalar muls (affine points),
+    with planted scalars: 0, 1, r - 1, all-ones digits, a nonzero top (3-bit)
+    window alone, repeated scalars; and the wide table's entries == host
+    scalar muls on a sample."""
+    from tokamak_zk_evm_tpu_torch.fields import R_MOD
+    from tokamak_zk_evm_tpu_torch.host.curve import g1_scalar_mul_affine
+
+    rng = np.random.default_rng(10)
+    ks = [0, 1, R_MOD - 1, (1 << 252) - 1] + [d << 252 for d in range(1, 8)]
+    ks += [int.from_bytes(rng.bytes(32), "little") % R_MOD for _ in range(300)]
+    ks += ks[5:60] + [ks[20]] * 9
+    sc = torch.as_tensor(np.array([FR.to_limbs(k) for k in ks], np.int32).T.copy(), device=dev)
+    wide = K.fixed_base_table(*G1.gen, dev)
+    got = _affine_jac(K.g1_fixed_base(sc, wide))
+    assert got == _affine_jac(K.plain_g1_fixed_base(sc, K.fixed_base_table(*G1.gen, dev, 8), 8))
+    assert got[:40] == [g1_scalar_mul_affine(G1.gen, k) if k else None for k in ks[:40]]
+    X, Y = (c.cpu() for c in K.unpack_points(wide, 2))
+    for e in [0, 1, 4095, 4096, 21 * 4096, 21 * 4096 + 7] + rng.integers(0, 22 * 4096, 24).tolist():
+        w, d = divmod(int(e), 4096)
+        x, y = (FQ.from_mont(FQ.from_limbs(c[:, e].tolist())) for c in (X, Y))
+        want = g1_scalar_mul_affine(G1.gen, (d << (12 * w)) % R_MOD) if d else None
+        assert (None if x == y == 0 else (x, y)) == want
+
+
 @pytest.mark.parametrize("scalars", ["uniform", "skewed"])
 def test_g1_kernels(dev, scalars):
-    """Fixed-base kernel and the MSM against the plain versions, and each
-    MSM stage kernel against its plain version.  "skewed": small
-    witness-like scalars (most of them 1), so one bucket holds most
-    entries and the bucket sum runs a second pass over its chunks."""
-    tx, ty, tinf = K.fixed_base_table(*G1.gen, dev)
+    """Fixed-base kernel against the plain version (affine points: the
+    jacobian representatives may differ) and the MSM against the plain
+    versions, and each MSM stage kernel against its plain version.
+    "skewed": small witness-like scalars (most of them 1), so one bucket
+    holds most entries and the bucket sum runs a second pass over its
+    chunks."""
+    table = K.fixed_base_table(*G1.gen, dev)
     sc = rand(FR, 300, 5, dev)
-    jac = K.g1_fixed_base(sc, tx, ty, tinf)
-    assert all(torch.equal(a, b) for a, b in zip(jac, K.plain_g1_fixed_base(sc, tx, ty, tinf)))
+    jac = K.g1_fixed_base(sc, table)
+    assert _affine_jac(jac) == _affine_jac(K.plain_g1_fixed_base(sc, table, K.FIXED_BASE_BITS))
     px, py, pinf = K.g1_to_affine(jac)
     if scalars == "skewed":
         rng = np.random.default_rng(9)
@@ -153,11 +230,11 @@ def test_affine_tree_matches_pippenger(dev):
     from tokamak_zk_evm_tpu_torch.ops import msm as TM
 
     n = 1 << 16
-    tx, ty, tinf = K.fixed_base_table(*G1.gen, dev)
+    table = K.fixed_base_table(*G1.gen, dev)
     c = rand(FR, n, 7, dev)
     c[1:] = 0
     c[0] %= 997  # few distinct points: repeats and a few infinities
-    px, py, pinf = K.g1_to_affine(K.g1_fixed_base(c, tx, ty, tinf))
+    px, py, pinf = K.g1_to_affine(K.g1_fixed_base(c, table))
     sc = rand(FR, n, 8, dev)
     want = TM.msm(sc, px, py, pinf)
     with TM.use_core("affine_tree"):

@@ -4,7 +4,9 @@ Every MSM at 2^4..2^10 points and at two non-power-of-two counts mixes
 infinities, zero scalars, the scalar r-1 and heavily repeated points (so
 buckets double and cancel), and must give the same host point as the JAX
 package's MSM.  `fixed_base_msm_points` and the jacobian ops must give the
-same affine points too.  Tolerance: exact (points are compared as integers).
+same affine points too, and the plain fixed-base op on a 12-bit window table
+the same points as host scalar muls.  Tolerance: exact (points are compared
+as integers).
 """
 
 import numpy as np
@@ -97,6 +99,43 @@ def test_fixed_base_points_match_jax(n):
     got = TC.unpack_affine(TM.fixed_base_msm_points(ks, G1.gen, "cpu"))
     assert got == want
     assert got[2] == g1_scalar_mul_affine(G1.gen, ks[2])
+
+
+def test_window_scalars_are_the_table_multiples():
+    """Column (w << 12) + d of the wide table's build scalars is d 2^(12 w)
+    mod r, canonical limbs (the top window reaches past r)."""
+    from tokamak_zk_evm_tpu_torch.fields import FR
+
+    sc = K._window_scalars(12)
+    assert sc.shape == (16, 22 * 4096)
+    for w, d in [(0, 0), (0, 4095), (1, 1), (10, 2049), (20, 4095), (21, 7), (21, 8), (21, 4095)]:
+        assert FR.from_limbs(sc[:, (w << 12) + d].tolist()) == (d << (12 * w)) % R_MOD
+
+
+@pytest.mark.parametrize("bits", [8, 12])
+def test_plain_fixed_base_window_width(bits):
+    """plain_g1_fixed_base at 8 and 12 bits against host scalar muls, on a
+    table that holds host multiples at the digits these scalars use (zeros
+    elsewhere): 0, 1, r - 1, all-ones 12-bit digits, a nonzero top window
+    alone, repeated and random scalars."""
+    from tokamak_zk_evm_tpu_torch.fields import FR
+
+    rng = np.random.default_rng(bits)
+    ks = [0, 1, R_MOD - 1, (1 << 252) - 1, 1 << 252, 7 << 252, 5, 5]
+    ks += [int.from_bytes(rng.bytes(32), "little") % R_MOD for _ in range(4)]
+    nwin, size = K.fixed_base_windows(bits), 1 << bits
+    xs, ys = [0] * (nwin * size), [0] * (nwin * size)
+    for k in ks:
+        for w in range(nwin):
+            d = (k >> (bits * w)) & (size - 1)
+            if d:
+                xs[w * size + d], ys[w * size + d] = g1_scalar_mul_affine(G1.gen, d << (bits * w))
+    from tokamak_zk_evm_tpu_torch.ops import field as TF
+
+    table = K.pack_points(torch.as_tensor(TF.pack_fq(xs)), torch.as_tensor(TF.pack_fq(ys)))
+    sc = torch.as_tensor(np.array([FR.to_limbs(k) for k in ks], np.int32).T.copy())
+    got = TC.unpack_affine(TC.jac_to_affine(K.g1_fixed_base(sc, table)))
+    assert got == [g1_scalar_mul_affine(G1.gen, k) if k else None for k in ks]
 
 
 def jax_jac(pts):

@@ -45,13 +45,16 @@ SIGNATURES = {
         "tzk_batch_inv_fwd": [_I, _P, _P, _P, _LL, _I, _P],
         "tzk_batch_inv_bwd": [_I, _P, _P, _P, _P, _LL, _I, _P],
     },
-    "ntt": {"tzk_ntt": [_P, _P, _P, _P, _LL, _LL, _P]},
+    "ntt": {
+        "tzk_ntt_passes": [_LL, _LL],
+        "tzk_ntt": [_P, _P, _P, _P, _P, _LL, _LL, _LL, _P],
+    },
     "g1_affine": {
         "tzk_aff_pre": [_P, _P, _P, _P, _P, _LL, _P],
         "tzk_aff_post": [_P, _P, _P, _P, _P, _P, _P, _LL, _P],
     },
     "g1": {
-        "tzk_g1_fixed_base": [_P, _P, _P, _P, _P, _P, _P, _LL, _P],
+        "tzk_g1_fixed_base": [_P, _P, _I, _P, _P, _P, _LL, _P],
     },
     "msm": {
         "tzk_msm_bucket_sum": [_I, _P, _P, _P, _P, _P, _LL, _P, _P],

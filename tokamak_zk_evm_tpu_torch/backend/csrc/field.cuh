@@ -1,4 +1,7 @@
-// BLS12-381 Fr / Fq Montgomery arithmetic for the port's CUDA kernels.
+// BLS12-381 Fr / Fq Montgomery arithmetic of K1 (field_ew.cu), K2
+// (field_inv.cu) and K5 (g1_affine.cu): a generic CIOS product on 64-bit
+// integers, one template over the field.  K3 and K4 use the carry-chain
+// arithmetic of fr_chain.cuh and fq_chain.cuh instead.
 //
 // Interchange layout (shared with the JAX package and the plain PyTorch
 // versions): an array of B field elements is limb-major int32 [L, B] holding

@@ -1,6 +1,7 @@
 // BLS12-381 Fq Montgomery arithmetic on PTX carry chains, and the complete
-// G1 jacobian formulas over it, for the MSM kernels of msm.cu (no other
-// kernel includes this header; field.cuh stays the arithmetic of K1-K5).
+// G1 jacobian formulas over it: the arithmetic of K4's kernels (msm.cu, and
+// g1.cu's fixed-base kernel).  fr_chain.cuh builds K3's Fr arithmetic on its
+// carry primitives; field.cuh stays the arithmetic of K1, K2 and K5.
 //
 // Values are 12 little-endian 32-bit words, Montgomery form (R = 2^384),
 // fully reduced into [0, q) after every operation, so results are

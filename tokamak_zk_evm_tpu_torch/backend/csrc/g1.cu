@@ -1,159 +1,77 @@
-// K4: BLS12-381 G1 over Fq -- complete jacobian arithmetic and the
-// fixed-base kernel of trusted setup.  (The two device stages of the
-// Pippenger MSM, and the complete jacobian add they use, are in msm.cu.)
+// K4: the fixed-base kernel of trusted setup, k_i * G from a window table
+// of G.  (The two device stages of the Pippenger MSM are in msm.cu.)
 //
-// Replaces, in tokamak_zk_evm_tpu/backend/pallas_kernels.py:
-//   * `_jac_add_fused_fn` / `_jac_add_block` (889-993): complete jacobian
-//     arithmetic (add-2007-bl with dbl-2009-l and the infinity / double /
-//     cancel cases) -> the __device__ functions jac_dbl / mixed_add below and
-//     fq_chain.cuh's add_jac;
-//   * `_fixed_base_apply_fn` (2177) behind `g1_fixed_base` (2159): 32 windows
-//     of 8 bits against the host-built 32 x 256 affine table
-//     -> fixed_base_kernel, one thread per scalar.
+// Replaces `_fixed_base_apply_fn` (2177) behind `g1_fixed_base` (2159) in
+// tokamak_zk_evm_tpu/backend/pallas_kernels.py, whose adds are
+// `_jac_add_fused_fn` (961): 32 windows of 8 bits against a 32 x 256 affine
+// table.  Here the window is `bits` wide: 12 on the main path (22 windows
+// cover r < 2^255, so 22 adds a scalar, not 32), against a 22 x 4096 table
+// that the wrapper builds on the card with this kernel at 8 bits
+// (`backend/kernels.py` fixed_base_table).
 //
-// Every add here is complete.  The TPU merge tree uses incomplete adds that
-// assume distinct partial sums (1183-1191); repeated points and witness
-// values break that assumption, so a doubling or a cancellation is handled
-// wherever it can occur.
+// Every add is complete (fq_chain.cuh add_affine): digits repeat across
+// scalars, and a partial sum can equal the table point it meets.
 //
-// Bound on the card: operations.  A mixed add is ~11 Fq Montgomery products
-// (~150 32-bit multiply-adds each) against 96 B of point data, far above the
-// card's ops-per-byte balance.  Design response: one point per thread with
-// all coordinates in registers; loads are coalesced across the limb rows.
-#include "field.cuh"
+// Bound on the card: operations.  A mixed add is 11 Fq products of ~300
+// 32-bit multiply-adds against 96 B of table point, so the design keeps the
+// arithmetic in registers and the warps busy, as the bucket sum's affine
+// pass does with the same add: one thread per scalar, products on PTX carry
+// chains, every curve function inlined (no stack frame, no spills), three
+// 128-thread blocks an SM; a table point is six 16-byte loads of an
+// L2-resident table (8.6 MB at 12 bits).  A digit is read from the scalar's
+// limbs as its window comes (two 4-byte loads), which keeps eight words of
+// scalar out of the registers the add needs.
+#include "fq_chain.cuh"
 
 namespace {
 
-using tzk::Fq;
-constexpr int N = Fq::N;
-typedef uint32_t fq[N];
+using fqc::Pt;
 
-struct Pt {
-  fq X, Y, Z;
-};
-
-__device__ __forceinline__ void set_inf(Pt& o) {
-  tzk::set_one<Fq>(o.X);
-  tzk::set_one<Fq>(o.Y);
-  tzk::set_zero<Fq>(o.Z);
-}
-
-__device__ __forceinline__ bool is_inf(const Pt& p) { return tzk::is_zero<Fq>(p.Z); }
-
-__device__ __forceinline__ void copy_pt(Pt& o, const Pt& p) {
-  tzk::copy<Fq>(o.X, p.X);
-  tzk::copy<Fq>(o.Y, p.Y);
-  tzk::copy<Fq>(o.Z, p.Z);
-}
-
-// dbl-2009-l; Z3 = 2*Y1*Z1 sends Y = 0 or Z = 0 to infinity.
-__device__ __noinline__ void jac_dbl(Pt& o, const Pt& p) {
-  fq A, B, C, D, E, F, t, D2, C8, YZ;
-  tzk::mul<Fq>(A, p.X, p.X);
-  tzk::mul<Fq>(B, p.Y, p.Y);
-  tzk::mul<Fq>(C, B, B);
-  tzk::add<Fq>(t, p.X, B);
-  tzk::mul<Fq>(t, t, t);
-  tzk::sub<Fq>(t, t, A);
-  tzk::sub<Fq>(D, t, C);
-  tzk::add<Fq>(D, D, D);
-  tzk::add<Fq>(E, A, A);
-  tzk::add<Fq>(E, E, A);
-  tzk::mul<Fq>(F, E, E);
-  Pt r;
-  tzk::add<Fq>(D2, D, D);
-  tzk::sub<Fq>(r.X, F, D2);
-  tzk::add<Fq>(C8, C, C);
-  tzk::add<Fq>(C8, C8, C8);
-  tzk::add<Fq>(C8, C8, C8);
-  tzk::sub<Fq>(t, D, r.X);
-  tzk::mul<Fq>(t, E, t);
-  tzk::sub<Fq>(r.Y, t, C8);
-  tzk::mul<Fq>(YZ, p.Y, p.Z);
-  tzk::add<Fq>(r.Z, YZ, YZ);
-  copy_pt(o, r);
-}
-
-// complete mixed add: p jacobian, (qx, qy) affine and finite
-__device__ __noinline__ void mixed_add(Pt& o, const Pt& p, const fq& qx, const fq& qy) {
-  if (is_inf(p)) {
-    tzk::copy<Fq>(o.X, qx);
-    tzk::copy<Fq>(o.Y, qy);
-    tzk::set_one<Fq>(o.Z);
-    return;
+__device__ __forceinline__ void store_limbs(int32_t* p, long long i, long long B, const fqc::fe& x) {
+#pragma unroll
+  for (int k = 0; k < fqc::N; ++k) {
+    p[(2 * k) * B + i] = (int32_t)(x[k] & 0xFFFFu);
+    p[(2 * k + 1) * B + i] = (int32_t)(x[k] >> 16);
   }
-  fq Z1Z1, U2, S2, H, R, t;
-  tzk::mul<Fq>(Z1Z1, p.Z, p.Z);
-  tzk::mul<Fq>(U2, qx, Z1Z1);
-  tzk::mul<Fq>(t, p.Z, Z1Z1);
-  tzk::mul<Fq>(S2, qy, t);
-  tzk::sub<Fq>(H, U2, p.X);
-  tzk::sub<Fq>(R, S2, p.Y);
-  if (tzk::is_zero<Fq>(H)) {
-    if (tzk::is_zero<Fq>(R)) jac_dbl(o, p);
-    else set_inf(o);
-    return;
-  }
-  fq HH, HHH, V, RR, V2, YH3;
-  tzk::mul<Fq>(HH, H, H);
-  tzk::mul<Fq>(HHH, H, HH);
-  tzk::mul<Fq>(V, p.X, HH);
-  tzk::mul<Fq>(RR, R, R);
-  Pt r;
-  tzk::add<Fq>(V2, V, V);
-  tzk::sub<Fq>(t, RR, HHH);
-  tzk::sub<Fq>(r.X, t, V2);
-  tzk::sub<Fq>(t, V, r.X);
-  tzk::mul<Fq>(t, R, t);
-  tzk::mul<Fq>(YH3, p.Y, HHH);
-  tzk::sub<Fq>(r.Y, t, YH3);
-  tzk::mul<Fq>(r.Z, p.Z, H);
-  copy_pt(o, r);
 }
 
-__device__ __forceinline__ void store_pt(int32_t* x, int32_t* y, int32_t* z, long long i,
-                                         long long stride, const Pt& p) {
-  tzk::store<Fq>(x, i, stride, p.X);
-  tzk::store<Fq>(y, i, stride, p.Y);
-  tzk::store<Fq>(z, i, stride, p.Z);
-}
-
-// out[i] = k_i * G from the [24, 32*256] affine window table (entry wi*256+d
-// holds d * 2^(8 wi) * G); scalars canonical [16, B].
-__global__ void fixed_base_kernel(const int32_t* __restrict__ sc, const int32_t* __restrict__ tx,
-                                  const int32_t* __restrict__ ty,
-                                  const int32_t* __restrict__ tinf, int32_t* ox, int32_t* oy,
-                                  int32_t* oz, long long B) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// out[i] = k_i * G (jacobian, limb-major [24, B] each) for canonical scalars
+// [16, B]; table: [nwin << bits, 24] words, entry (w << bits) + d holds
+// d 2^(bits w) G affine (d = 0 is never read).
+__global__ void __launch_bounds__(128, 3)
+fixed_base_kernel(const int32_t* __restrict__ sc, const uint4* __restrict__ table, int bits,
+                  int nwin, int32_t* ox, int32_t* oy, int32_t* oz, long long B) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
-  const long long TS = 32 * 256;
+  const uint32_t mask = (1u << bits) - 1u;
   Pt acc;
-  set_inf(acc);
-  for (int wi = 0; wi < 32; ++wi) {
-    uint32_t limb = (uint32_t)__ldg(sc + (wi >> 1) * B + i);
-    uint32_t d = (limb >> (8 * (wi & 1))) & 0xFFu;
+  fqc::set_inf(acc);
+#pragma unroll 1
+  for (int w = 0; w < nwin; ++w) {
+    const int o = w * bits, l = o >> 4;  // digit: bits [o, o + bits), limbs l and l + 1
+    uint32_t v = (uint32_t)__ldg(sc + l * B + i) & 0xFFFFu;
+    if (l + 1 < 16) v |= ((uint32_t)__ldg(sc + (l + 1) * B + i) & 0xFFFFu) << 16;
+    const uint32_t d = (v >> (o & 15)) & mask;
     if (d == 0u) continue;
-    long long e = (long long)wi * 256 + d;
-    if (__ldg(tinf + e)) continue;
-    fq qx, qy;
-    tzk::load<Fq>(qx, tx, e, TS);
-    tzk::load<Fq>(qy, ty, e, TS);
-    mixed_add(acc, acc, qx, qy);
+    fqc::fe qx, qy;
+    fqc::load_affine(qx, qy, table, ((long long)w << bits) + d);
+    fqc::add_affine(acc, qx, qy);
   }
-  store_pt(ox, oy, oz, i, B, acc);
+  store_limbs(ox, i, B, acc.X);
+  store_limbs(oy, i, B, acc.Y);
+  store_limbs(oz, i, B, acc.Z);
 }
-
-inline unsigned nblocks(long long n, int t) { return (unsigned)((n + t - 1) / t); }
 
 }  // namespace
 
-extern "C" int tzk_g1_fixed_base(const void* scalars, const void* tx, const void* ty,
-                                 const void* tinf, void* ox, void* oy, void* oz, long long B,
-                                 void* stream) {
+// bits <= 16: windows of `bits` bits, ceil(255 / bits) of them.
+extern "C" int tzk_g1_fixed_base(const void* scalars, const void* table, int bits, void* ox,
+                                 void* oy, void* oz, long long B, void* stream) {
   if (B <= 0) return 0;
+  if (bits < 1 || bits > 16) return (int)cudaErrorInvalidValue;
   const int T = 128;
-  fixed_base_kernel<<<nblocks(B, T), T, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)scalars, (const int32_t*)tx, (const int32_t*)ty, (const int32_t*)tinf,
+  fixed_base_kernel<<<(unsigned)((B + T - 1) / T), T, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)scalars, (const uint4*)table, bits, (255 + bits - 1) / bits,
       (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, B);
-  TZK_LAUNCH_CHECK();
+  return (int)cudaGetLastError();
 }

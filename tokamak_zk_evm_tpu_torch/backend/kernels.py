@@ -12,13 +12,17 @@ A wrapper dispatches on the device of its tensor argument:
   * any other device raises.  Nothing falls back.
 
 The kernels (see each source's header for the TPU kernel it replaces, what
-bounds it on the card, and what its design does about that):
+bounds it on the card, and what its design does about that; K1, K2 and K5 run
+on `csrc/field.cuh`'s arithmetic, K3 on `fr_chain.cuh`'s and K4 on
+`fq_chain.cuh`'s carry chains):
 
   K1 csrc/field_ew.cu   FR_EW / FQ_EW    add, sub, mul, neg
   K2 csrc/field_inv.cu  FIELD_INV        Fermat inversion
                         BATCH_INV        chunked batch inversion (fwd + bwd)
-  K3 csrc/ntt.cu        NTT              batched radix-2 NTT
-  K4 csrc/g1.cu         G1_FIXED_BASE    k_i * G from a window table
+  K3 csrc/ntt.cu        NTT              NTT along either grid axis, stages
+                                         fused in shared memory, one or two
+                                         passes, the scale folded in
+  K4 csrc/g1.cu         G1_FIXED_BASE    k_i * G from a 12-bit window table
      csrc/msm.cu        MSM_BUCKET_SUM   bounded-chunk bucket sums
                         MSM_WINDOW       sum_b b * B_b, one level of segments
   K5 csrc/g1_affine.cu  AFF_PRE          affine-add slope denominators
@@ -26,7 +30,8 @@ bounds it on the card, and what its design does about that):
 
 `fr_prefix_prod` / `fr_suffix_prod` are a log-depth scan over the Fr mul
 kernel, and `g1_add` / `g1_dbl` / `g1_to_affine` chains of field ops, as the
-JAX package's Pallas backend builds them.
+JAX package's Pallas backend builds them.  The fixed-base op's 12-bit table
+is built by the op itself (at 8 bits) and `g1_to_affine`.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import functools
 import numpy as np
 import torch
 
-from ..fields import FQ, FR, Q_MOD
+from ..fields import FQ, FR, Q_MOD, R_MOD
 from . import build
 from . import limbs
 
@@ -320,10 +325,16 @@ def _bitrev(n: int, device) -> torch.Tensor:
     return r
 
 
-def plain_ntt(data, pows, scale):
-    """Plain version of K3: bit-reverse, radix-2 DIT stages, final scale."""
-    L, batch, n = data.shape
+NTT_MAX_N = 1 << 22  # the kernel's two passes of at most 2048 points
+
+
+def plain_ntt(data, pows, scale=None, axis=2):
+    """Plain version of K3: a transpose brings `axis` last, then bit
+    reversal, radix-2 DIT stages and `scale`."""
     x = data.to(torch.int64)
+    if axis == 1:
+        x = x.transpose(1, 2)
+    L, batch, n = x.shape
     inv_perm = torch.argsort(_bitrev(n, x.device))
     x = x[:, :, inv_perm]  # x[r(j)] = data[j]
     w = pows.to(torch.int64)
@@ -339,28 +350,47 @@ def plain_ntt(data, pows, scale):
         b = limbs.sub(_FR, lo, hi).reshape(L, batch, n // (2 * m), 1, m)
         x = torch.cat([a, b], 3).reshape(L, batch, n)
         m *= 2
-    sc = scale.to(torch.int64).reshape(L, 1).expand(L, batch * n)
-    out = limbs.mul(_FR, x.reshape(L, -1), sc)
-    return out.reshape(L, batch, n).to(torch.int32)
+    if scale is not None:
+        sc = scale.to(torch.int64).expand(L, batch * n)
+        x = limbs.mul(_FR, x.reshape(L, -1), sc).reshape(L, batch, n)
+    if axis == 1:
+        x = x.transpose(1, 2)
+    return x.to(torch.int32).contiguous()
 
 
-def fr_ntt(data, pows, scale):
-    """data [16, batch, n] natural order; pows [16, n] twiddles w^j; scale
-    [16, 1] applied to every output.  Returns natural order."""
-    L, batch, n = data.shape
-    if L != FR_L or pows.shape != (FR_L, n) or scale.shape != (FR_L, 1):
-        raise ValueError("fr_ntt: want data [16, batch, n], pows [16, n], scale [16, 1]")
+def fr_ntt(data, pows, scale=None, axis=2, inplace=False):
+    """NTT of the grid `data` [16, X, Y] (natural order) along `axis` (1 or
+    2), of length n = data.shape[axis] <= NTT_MAX_N:
+        out[k] = scale * sum_j data[j] * w^(jk)
+    with twiddles pows [16, n] = w^j and `scale` None or [16, 1] (an
+    inverse transform's n^-1).  Natural order out, into a new tensor, or
+    over `data` with `inplace`.  Both routes refuse n > NTT_MAX_N, which
+    the kernel's two passes cannot hold."""
+    if data.dim() != 3 or data.shape[0] != FR_L or axis not in (1, 2):
+        raise ValueError("fr_ntt: want data [16, X, Y] and axis 1 or 2")
+    n = data.shape[axis]
     if n & (n - 1) or n < 2:
         raise ValueError(f"fr_ntt: n = {n} is not a power of two >= 2")
-    if not (data.is_contiguous() and pows.is_contiguous() and scale.is_contiguous()):
-        raise ValueError("fr_ntt: inputs must be contiguous")
-    if data.dtype != torch.int32 or pows.dtype != torch.int32 or scale.dtype != torch.int32:
-        raise ValueError("fr_ntt: inputs must be int32")
-    if not on_card(data, pows, scale):
-        return plain_ntt(data, pows, scale)
-    out = torch.empty_like(data)
-    build.call("ntt", "tzk_ntt", _ptr(data), _ptr(out), _ptr(pows), _ptr(scale), batch, n,
-               _stream(data))
+    if n > NTT_MAX_N:
+        raise ValueError(f"fr_ntt: n = {n} is longer than NTT_MAX_N = 2^22, the most "
+                         "the kernel's two passes hold")
+    if pows.shape != (FR_L, n) or (scale is not None and scale.shape != (FR_L, 1)):
+        raise ValueError("fr_ntt: want pows [16, n] and scale None or [16, 1]")
+    tensors = [t for t in (data, pows, scale) if t is not None]
+    if not all(t.is_contiguous() and t.dtype == torch.int32 for t in tensors):
+        raise ValueError("fr_ntt: inputs must be contiguous int32")
+    if not on_card(*tensors):
+        out = plain_ntt(data, pows, scale, axis)
+        return data.copy_(out) if inplace else out
+    X, Y = data.shape[1:]
+    A, C = (X, 1) if axis == 2 else (1, Y)
+    passes = build.lib("ntt").tzk_ntt_passes(n, C)
+    # one pass reads a block's whole tile before it writes it back, and two
+    # go through `tmp`, so `out` may be `data`
+    out = data if inplace else torch.empty_like(data)
+    tmp = torch.empty_like(data) if passes == 2 else None
+    build.call("ntt", "tzk_ntt", _ptr(data), _ptr(out), _ptr(tmp), _ptr(pows), _ptr(scale),
+               A, n, C, _stream(data))
     NTT.launches += 1
     return out
 
@@ -603,16 +633,30 @@ def _fq_limbs(v: int) -> list[int]:
     return FQ.to_limbs(FQ.to_mont(v))
 
 
+FIXED_BASE_BITS = 12  # window width of the fixed-base table on the card
+
+
+def fixed_base_windows(bits: int) -> int:
+    return -(-255 // bits)
+
+
+def fixed_base_bits(table) -> int:
+    """Window width of a `fixed_base_table`, from its number of points."""
+    for bits in range(1, 17):
+        if fixed_base_windows(bits) << bits == table.shape[0]:
+            return bits
+    raise ValueError(f"no window table has {table.shape[0]} points")
+
+
 @functools.lru_cache(maxsize=4)
 def _fixed_base_table_host(gx: int, gy: int):
     """32 x 256 window table: entry wi*256 + d is d * 2^(8 wi) * G, affine
-    Montgomery, as [24, 8192] x, y and [8192] infinity flags."""
+    Montgomery, as [24, 8192] x and y (d = 0: infinity, (0, 0))."""
     from ..host.curve import G1
 
     W, NWIN, TBL = 8, 32, 256
     tx = np.zeros((FQ_L, NWIN * TBL), np.int32)
     ty = np.zeros((FQ_L, NWIN * TBL), np.int32)
-    tinf = np.ones(NWIN * TBL, np.int32)
     base = G1.from_affine((gx, gy))
     for wi in range(NWIN):
         acc = G1.infinity
@@ -633,47 +677,90 @@ def _fixed_base_table_host(gx: int, gy: int):
             e = wi * TBL + d
             tx[:, e] = _fq_limbs(p[0] * zi2 % Q_MOD)
             ty[:, e] = _fq_limbs(p[1] * zi2 % Q_MOD * zi % Q_MOD)
-            tinf[e] = 0
         for _ in range(W):
             base = G1.double(base)
-    return tx, ty, tinf
+    return tx, ty
 
 
-def fixed_base_table(gx: int, gy: int, device):
-    tx, ty, tinf = _fixed_base_table_host(gx, gy)
-    return (torch.from_numpy(tx).to(device), torch.from_numpy(ty).to(device),
-            torch.from_numpy(tinf).to(device))
+@functools.lru_cache(maxsize=2)
+def _window_scalars(bits: int) -> np.ndarray:
+    """Canonical limbs [16, nwin << bits] of the scalars d 2^(bits w) mod r,
+    at column (w << bits) + d."""
+    nwin, size = fixed_base_windows(bits), 1 << bits
+    out = np.zeros((FR_L, nwin * size), np.int32)
+    d = np.arange(size, dtype=np.int64)
+    for w in range(nwin):
+        o, cols = bits * w, slice(w * size, (w + 1) * size)
+        if (size - 1) << o < R_MOD:
+            v = d << (o % 16)
+            out[o // 16, cols] = v & 0xFFFF
+            if o // 16 + 1 < FR_L:
+                out[o // 16 + 1, cols] = v >> 16
+        else:  # the top window reaches past r
+            out[:, cols] = np.array([FR.to_limbs((k << o) % R_MOD) for k in range(size)]).T
+    return out
 
 
-def plain_g1_fixed_base(scalars, tx, ty, tinf):
-    """Plain version of the fixed-base kernel: 32 windows, one lane per
-    scalar, complete mixed adds of table points."""
+def fixed_base_table(gx: int, gy: int, device, bits: int | None = None):
+    """Window table of G for `g1_fixed_base` on `device`, affine points
+    packed point-major ([nwin << bits, 24] int32 words, `pack_points`):
+    entry (w << bits) + d is d 2^(bits w) G, and d = 0 holds infinity as
+    (0, 0), never read.  The 8-bit table (32 x 256) is built on the host; a
+    wider one by `g1_fixed_base` itself over the scalars d 2^(bits w)
+    against the 8-bit table, made affine by `g1_to_affine` (K2), on
+    `device`'s kind.  `bits` defaults to FIXED_BASE_BITS on the card and to
+    8 on the CPU, where the wide table's plain build takes ~20 s.  Once
+    built, a table is kept on the host and moved to `device` at each call,
+    so it holds no device memory between setups."""
+    kind = torch.device(device).type
+    if bits is None:
+        bits = FIXED_BASE_BITS if kind == "cuda" else 8
+    return _fixed_base_table_packed(gx, gy, bits, kind).to(device)
+
+
+@functools.lru_cache(maxsize=4)
+def _fixed_base_table_packed(gx: int, gy: int, bits: int, kind: str) -> torch.Tensor:
+    if bits == 8:
+        tx, ty = _fixed_base_table_host(gx, gy)
+        return pack_points(torch.from_numpy(tx), torch.from_numpy(ty))
+    base = fixed_base_table(gx, gy, kind, 8)
+    scalars = torch.as_tensor(_window_scalars(bits), device=kind)
+    x, y, _ = g1_to_affine(g1_fixed_base(scalars, base))
+    return pack_points(x, y).cpu()
+
+
+def plain_g1_fixed_base(scalars, table, bits: int):
+    """Plain version of the fixed-base kernel: for each window, complete
+    mixed adds of the table points of the scalars whose digit is nonzero."""
     B = scalars.shape[1]
     s = scalars.to(torch.int64)
-    acc = _inf(_PLAIN, B, s.device)
-    txl, tyl = tx.to(torch.int64), ty.to(torch.int64)
-    for wi in range(32):
-        d = (s[wi // 2] >> (8 * (wi % 2))) & 0xFF
-        e = wi * 256 + d
-        use = (d != 0) & (tinf[e] == 0)
-        if not bool(use.any()):
+    s = torch.cat([s, torch.zeros_like(s[:1])])  # limb l + 1 of the top digit
+    tx, ty = _plain_unpack(table, 2)
+    acc = [c.clone() for c in _inf(_PLAIN, B, s.device)]
+    for w in range(fixed_base_windows(bits)):
+        o = bits * w
+        d = ((s[o // 16] | (s[o // 16 + 1] << 16)) >> (o % 16)) & ((1 << bits) - 1)
+        use = torch.nonzero(d != 0).squeeze(1)
+        if use.numel() == 0:
             continue
-        nxt = mixed_add(_PLAIN, acc, txl[:, e], tyl[:, e])
-        acc = tuple(_sel(use, n, a) for n, a in zip(nxt, acc))
+        e = (w << bits) + d[use]
+        nxt = mixed_add(_PLAIN, tuple(c[:, use] for c in acc), tx[:, e], ty[:, e])
+        for c, v in zip(acc, nxt):
+            c[:, use] = v
     return tuple(c.to(torch.int32) for c in acc)
 
 
-def g1_fixed_base(scalars, tx, ty, tinf):
+def g1_fixed_base(scalars, table):
     """out[i] = k_i * G (jacobian [24, B] x 3) for canonical scalars [16, B]
-    and the window table of G (`fixed_base_table`)."""
+    and a window table of G (`fixed_base_table`, of any width)."""
     _check(scalars, FR_L, "scalars")
-    _check(tx, FQ_L, "tx")
-    _check(ty, FQ_L, "ty")
-    if not on_card(scalars, tx, ty, tinf):
-        return plain_g1_fixed_base(scalars, tx, ty, tinf)
+    _check_packed(table, AFF_WORDS, "table")
+    bits = fixed_base_bits(table)
+    if not on_card(scalars, table):
+        return plain_g1_fixed_base(scalars, table, bits)
     B = scalars.shape[1]
     out = [torch.empty((FQ_L, B), dtype=torch.int32, device=scalars.device) for _ in range(3)]
-    build.call("g1", "tzk_g1_fixed_base", _ptr(scalars), _ptr(tx), _ptr(ty), _ptr(tinf),
+    build.call("g1", "tzk_g1_fixed_base", _ptr(scalars), _ptr(table), bits,
                *[_ptr(o) for o in out], B, _stream(scalars))
     G1_FIXED_BASE.launches += 1
     return tuple(out)

@@ -86,8 +86,8 @@ def fixed_base_msm_points(scalars, gen, device):
     device.  CRS-generation workhorse (trusted setup xy_powers etc.)."""
     if not hasattr(scalars, "device"):
         scalars = scalars_from_ints([int(s) % R_MOD for s in scalars], device)
-    tx, ty, tinf = K.fixed_base_table(gen[0], gen[1], scalars.device)
-    jac = K.g1_fixed_base(scalars.contiguous(), tx, ty, tinf)
+    table = K.fixed_base_table(gen[0], gen[1], scalars.device)
+    jac = K.g1_fixed_base(scalars.contiguous(), table)
     from . import curve as cv
 
     return cv.jac_to_affine(jac)

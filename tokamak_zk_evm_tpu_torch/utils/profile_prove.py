@@ -3,10 +3,11 @@ kernels that take the device time.
 
     python -m tokamak_zk_evm_tpu_torch.utils.profile_prove [--core NAME] [--out DIR]
 
-Builds `build_synthetic()` at its defaults, runs setup and one untraced
-prove (so every kernel is built and warm), builds a second Prover outside
-the traced window, then traces its `prove()` alone with `torch.profiler`
-and prints one JSON line: the prove's wall seconds, the device busy seconds
+Builds `build_synthetic()` at its defaults, runs setup twice (the first
+builds and loads every kernel; the second, warm, is timed) and one untraced
+prove, builds a second Prover outside the traced window, then traces its
+`prove()` alone with `torch.profiler` and prints one JSON line: the warm
+setup's seconds, the prove's wall seconds, the device busy seconds
 (union of the CUDA activity intervals), the busy share, and the device
 seconds of every CUDA kernel, most first, all of `prove()` and nothing of
 Prover init.  `--out DIR` also writes
@@ -56,6 +57,11 @@ def main() -> None:
     fx = build_synthetic()
     p = fx.params
     sigma = generate_sigma(p, Tau.fixed(), fx.library, fx.infos, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sigma = generate_sigma(p, Tau.fixed(), fx.library, fx.infos, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
 
     def prover():
         out = Prover(p, sigma, fx.library, fx.infos, fx.placements, fx.permutation,
@@ -87,6 +93,7 @@ def main() -> None:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "core": args.core,
+        "setup_s": setup_s,
         "prove_wall_s": wall,
         "device_busy_s": busy,
         "busy_share": busy / wall if wall else None,
