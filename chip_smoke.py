@@ -11,10 +11,16 @@ Phases, in order (any mismatch or exception exits non-zero):
      (one nvcc per source, all at once), print each kernel's ptxas registers
      and stack frame, and require that the MSM build reports exactly its
      three stage kernels (the bucket sum's two passes and the window
-     reduce), the NTT build its pass kernel and the G1 build its fixed-base
-     kernel, each with no stack frame and no spills;
+     reduce), the NTT build its pass kernel, the G1 build its fixed-base
+     kernel and the inversion build its six (three a field), each with no
+     stack frame and no spills;
   3. each kernel against its plain PyTorch version on the card, exact:
-     K1/K2 on Fr and Fq batches holding 0, 1 and p-1; K3 forward and inverse
+     K1 on Fr and Fq batches holding 0, 1 and p-1; K2's inversion at 1 and
+     4096 elements and its batch inversion at 1, 2, its one-launch width
+     +-1, a tile past it, 2^20 (Fr) and 2^22 (Fq), with zeros at tile and
+     warp edges, and on all-zero batches, each also against host inverses
+     (`pow`) on a sample, a * a^-1 == 1, and one launch or three; K3
+     forward and inverse
      along both axes of a 16384 x 512 grid, on transforms past 16384 points
      (rows of 2^20, columns of 2^18), and a coset round trip (K1 and K3); K4
      fixed-base at 2^12 with planted scalars (0, 1, r-1, all-ones digits, a
@@ -33,15 +39,16 @@ Phases, in order (any mismatch or exception exits non-zero):
      Prover.prove() -> preprocess -> verify_snark(), with every kernel's
      launch counter set to 0 just before and read just after; every kernel
      of that path must have launched, and K5 not at all.  The run records
-     each distinct call of K3 (grid, axis, tables) and the fixed-base op's
-     batch sizes;
+     each distinct call of K3 (grid, axis, tables), the fixed-base op's
+     batch sizes and the widths of the batch inversions;
   5c. K3 against its plain version at every call signature phase 5
      recorded, on random grids of those shapes, exact;
   5b. the second MSM core, "affine_tree" (`ops.msm.use_core`): one 2^22-point
      MSM against the Pippenger and the O(1) oracle, then phase 5's path again
      on the same CRS (counters set to 0 before, read after): its proof bytes
      must equal phase 5's, it must verify, and K5 and the batch inversion
-     must have launched while K4's MSM stages did not;
+     must have launched while K4's MSM stages did not; the widths of its
+     batch inversions are counted by power of two;
   6. each kernel at the main path's shapes: held against its plain version
      there (every output of K1, K2, K3 on both axes, K5, the fixed-base
      kernel at 2^22 (against the plain version on the 8-bit table) and every
@@ -52,7 +59,9 @@ Phases, in order (any mismatch or exception exits non-zero):
      fixed-base kernel also at setup's other family sizes, with the 12-bit
      table's build; the skewed 2^22-point MSM is held against the O(1)
      oracle too, and the window reduce at 8/2 buckets a thread against the
-     default.
+     default; K2's inversion at 4096 and 1 elements, its batch inversion at
+     2^20 (Fr), 2^22, 2^10 and 1 (Fq), and one `g1_aff_add_batch` at 2^22
+     lanes, each beside its bound.
 The last three lines are the nvidia-smi line, the kernels JSON and the device
 JSON. The port imports nothing of JAX; neither does this script.
 """
@@ -88,6 +97,8 @@ PTXAS_CLEAN = {
     "msm": ("bucket_sum_kernel_affine", "bucket_sum_kernel_jacobian", "window_reduce_kernel"),
     "ntt": ("ntt_pass_kernel",),
     "g1": ("fixed_base_kernel",),
+    "field_inv": tuple(f"{k}_{f}" for k in ("inv_kernel", "binv_up", "binv_down")
+                       for f in ("fr", "fq")),
 }
 
 
@@ -217,22 +228,7 @@ def check_kernels(torch, np, K, dev):
                f"{spec.name} neg")
     torch.cuda.synchronize()
 
-    log("[3] K2 field_inv / batch_inv: kernel == plain, exact (0 -> 0)")
-    for field, spec in ((0, FR), (1, FQ)):
-        a = T(rand_field(np, rng, spec, 4096))
-        expect(torch.equal(K.field_inv(field, a), K.plain_field_inv(field, a)),
-               f"{spec.name} Fermat inverse, 4096")
-        n = (1 << 20) if field == 0 else (1 << 16) + 5
-        a = rand_field(np, rng, spec, n)
-        a[:, rng.integers(0, n, size=97)] = 0
-        a = T(a)
-        got = K.batch_inv(field, a)
-        expect(torch.equal(got, K.plain_batch_inv(field, a)),
-               f"{spec.name} batch inverse, {n} with zeros")
-        one = K.plain_field_ew(field, "mul", a, got)
-        nz = (a != 0).any(0)
-        mont_one = T(np.asarray(spec.to_limbs(spec.R_mod), np.int32)[:, None])
-        expect(bool((one[:, nz] == mont_one).all()), f"{spec.name} a * a^-1 == 1")
+    check_inversion(torch, np, K, dev, rng)
 
     log("[3] K3 ntt at 16384 x 512, both axes: kernel == plain, exact")
     grid = T(rand_field(np, rng, FR, 16384 * 512).reshape(16, 16384, 512))
@@ -299,6 +295,79 @@ def check_kernels(torch, np, K, dev):
     msm_oracle_check(torch, np, K, dev, rng, 1 << 12, plain=True)
     log("[3] K4 MSM at 2^22 against the O(1) oracle")
     msm_oracle_check(torch, np, K, dev, rng, 1 << 22, plain=False)
+
+
+def host_inverses_match(spec, a, out, idx) -> bool:
+    """out[:, i] is the Montgomery form of a_i^-1 (0 -> 0) for every i in
+    idx, by host `pow`."""
+    A, O = a[:, idx].cpu().numpy(), out[:, idx].cpu().numpy()
+    for j in range(len(idx)):
+        x = spec.from_mont(spec.from_limbs(A[:, j].tolist()))
+        want = spec.to_mont(pow(x, -1, spec.modulus)) if x else 0
+        if spec.from_limbs(O[:, j].tolist()) != want:
+            return False
+    return True
+
+
+def inversion_batch(np, rng, spec, n: int):
+    """`rand_field` with a random nonzero element first when n < 6 (its
+    column 0 holds 0)."""
+    if n >= 6:
+        return rand_field(np, rng, spec, n)
+    return np.ascontiguousarray(rand_field(np, rng, spec, n + 5)[:, 5:])
+
+
+def check_inversion(torch, np, K, dev, rng):
+    """K2 against its plain version and host inverses: the per-element
+    inversion, and the batch inversion on each side of the one-launch tile,
+    at the main path's widths, with zeros at tile and warp edges, and on
+    all-zero batches; a * a^-1 == 1 wherever a != 0."""
+    from tokamak_zk_evm_tpu_torch.fields import FQ, FR
+
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    log("[3] K2 field_inv / batch_inv: kernel == plain == host pow, exact (0 -> 0)")
+    for field, spec in ((0, FR), (1, FQ)):
+        mont_one = T(np.asarray(spec.to_limbs(spec.R_mod), np.int32)[:, None])
+        for n in (1, 4096):
+            a = T(inversion_batch(np, rng, spec, n))
+            got = K.field_inv(field, a)
+            idx = list(range(min(n, 64)))
+            expect(torch.equal(got, K.plain_field_inv(field, a))
+                   and host_inverses_match(spec, a, got, idx),
+                   f"{spec.name} inverse, {n} (== plain, == host pow on {len(idx)})")
+        each = K.BINV_EACH[field]
+        sizes = [1, 2, each - 1, each, each + 1]
+        sizes += [each + K.BINV_THREADS * K.binv_per_thread(field, each + 1) + 1]
+        sizes += [1 << 20] if field == 0 else [1 << 22]
+        for n in sizes:
+            a = inversion_batch(np, rng, spec, n)
+            tile = K.BINV_THREADS * K.binv_per_thread(field, n)
+            edges = [e for b in range(0, n + tile, tile) for e in (b - 1, b, b + 31, b + 32)
+                     if 0 <= e < n] if n > 2 else []
+            a[:, edges] = 0
+            a[:, rng.integers(0, n, size=n // 1000)] = 0
+            a = T(a)
+            before = K.BATCH_INV.launches + K.FIELD_INV.launches
+            got = K.batch_inv(field, a)
+            launches = K.BATCH_INV.launches + K.FIELD_INV.launches - before
+            idx = sorted(set(range(min(n, 8))) | set(edges[:24])
+                         | set(rng.integers(0, n, size=min(n, 32)).tolist()))
+            expect(torch.equal(got, K.plain_batch_inv(field, a))
+                   and host_inverses_match(spec, a, got, idx)
+                   and launches == (1 if n <= each else 3),
+                   f"{spec.name} batch inverse, {n} with {len(edges)} zeros at tile edges: "
+                   f"== plain, == host pow on {len(idx)}, {launches} launch(es)")
+            nz = (a != 0).any(0)
+            one = K.plain_field_ew(field, "mul", a, got)
+            expect(bool((one[:, nz] == mont_one).all()) and bool((got[:, ~nz] == 0).all()),
+                   f"{spec.name} batch inverse, {n}: a * a^-1 == 1, 0 -> 0")
+            del a, got, one
+        for n in (5, each + 1):
+            z = torch.zeros((spec.n_limbs, n), dtype=torch.int32, device=dev)
+            got = K.batch_inv(field, z)
+            expect(torch.equal(got, z) and torch.equal(got, K.plain_batch_inv(field, z)),
+                   f"{spec.name} batch inverse of {n} zeros is {n} zeros")
+    torch.cuda.empty_cache()
 
 
 def plain_bintt(K, NT, grid, inverse, cx, cy):
@@ -527,10 +596,12 @@ def expect_launches(counts, ran, idle, path):
 @contextlib.contextmanager
 def recording(K):
     """Record, inside the block, the distinct calls of K3 (grid shape, axis
-    and tables) and the batch sizes of the fixed-base op, as the entry
-    points make them (`ops` calls both through the module)."""
-    calls = {"ntt": {}, "fixed_base": set()}
-    fr_ntt, fixed_base = K.fr_ntt, K.g1_fixed_base
+    and tables), the batch sizes of the fixed-base op, and the widths of the
+    batch inversions by power of two ({"Fq 2^k": calls of width in
+    (2^(k-1), 2^k]}), as the entry points make them (`ops` and the kernel
+    wrappers call all three through the module)."""
+    calls = {"ntt": {}, "fixed_base": set(), "batch_inv": {}}
+    fr_ntt, fixed_base, batch_inv = K.fr_ntt, K.g1_fixed_base, K.batch_inv
 
     def ntt(data, pows, scale=None, axis=2, inplace=False):
         key = (tuple(data.shape), axis, inplace) + tuple(
@@ -542,11 +613,16 @@ def recording(K):
         calls["fixed_base"].add(int(scalars.shape[1]))
         return fixed_base(scalars, table)
 
-    K.fr_ntt, K.g1_fixed_base = ntt, fixed
+    def binv(field, a):
+        key = f"{'Fq' if field else 'Fr'} 2^{max(0, int(a.shape[1]) - 1).bit_length()}"
+        calls["batch_inv"][key] = calls["batch_inv"].get(key, 0) + 1
+        return batch_inv(field, a)
+
+    K.fr_ntt, K.g1_fixed_base, K.batch_inv = ntt, fixed, binv
     try:
         yield calls
     finally:
-        K.fr_ntt, K.g1_fixed_base = fr_ntt, fixed_base
+        K.fr_ntt, K.g1_fixed_base, K.batch_inv = fr_ntt, fixed_base, batch_inv
 
 
 def rand_fr(torch, shape, seed, dev):
@@ -702,6 +778,68 @@ def msm_stage_inputs(torch, np, K, dev, rng, n, skew=False):
     return out
 
 
+def divsteps_to_zero(x: int, p: int) -> int:
+    """Divsteps of the Bernstein-Yang extended gcd of (p, x) (delta = 1 at
+    the start) until g = 0; K2's inversion runs ceil(this / 30) batches."""
+    d, f, g, n = 1, p, x, 0
+    while g:
+        if d > 0 and g & 1:
+            d, f, g = 1 - d, g, (g - f) >> 1
+        elif g & 1:
+            d, g = 1 + d, (g + f) >> 1
+        else:
+            d, g = 1 + d, g >> 1
+        n += 1
+    return n
+
+
+def inversion_ops(field: int, values) -> int:
+    """Operations of K2's inversions of the nonzero `values` (the words it
+    inverts, Montgomery form): per batch of 30 divsteps, 10 S 32 x 32 ->
+    64-bit products on S = 9 (Fr) / 13 (Fq) limbs of 30 bits (6 S for
+    (d, e), 4 S for (f, g)), two operations each; and one Montgomery product
+    (R^3) an inversion."""
+    from tokamak_zk_evm_tpu_torch.fields import Q_MOD, R_MOD
+
+    p, S = ((R_MOD, 9), (Q_MOD, 13))[field]
+    mul = (FR_MUL_OPS, FQ_MUL_OPS)[field]
+    return sum(-(-divsteps_to_zero(v, p) // 30) * 2 * 10 * S + mul for v in values if v)
+
+
+def column_values(spec, a) -> list[int]:
+    host = a.cpu().numpy()
+    return [spec.from_limbs(host[:, i].tolist()) for i in range(host.shape[1])]
+
+
+def batch_total(K, field: int, a) -> int:
+    """The product of a batch's nonzero elements, the value K2's batch
+    inversion inverts (Montgomery form): a pairwise tree of plain products
+    on the card."""
+    import torch
+
+    from tokamak_zk_evm_tpu_torch.fields import FQ, FR
+
+    spec = (FR, FQ)[field]
+    one = torch.tensor(spec.to_limbs(spec.R_mod), dtype=torch.int32, device=a.device)[:, None]
+    x = torch.where((a == 0).all(0)[None, :], one, a)
+    while x.shape[1] > 1:
+        if x.shape[1] % 2:
+            x = torch.cat([x, one], 1)
+        h = x.shape[1] // 2
+        x = K.plain_field_ew(field, "mul", x[:, :h].contiguous(), x[:, h:].contiguous())
+    return spec.from_limbs(x[:, 0].tolist())
+
+
+def batch_inv_work(K, field: int, a) -> tuple[int, int]:
+    """(bytes, operations) of one batch inversion of a [L, n] batch: read and
+    written once; 3 (m - 1) Montgomery products over its m nonzero elements
+    and the one inversion of their product."""
+    L, n = a.shape
+    m = int((a != 0).any(0).sum())
+    ops = 3 * max(m - 1, 0) * (FR_MUL_OPS, FQ_MUL_OPS)[field]
+    return 8 * L * n, ops + inversion_ops(field, [batch_total(K, field, a)])
+
+
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = PEAK_OPS_PER_S):
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
     to = ops / ops_per_s * 1e3
@@ -776,17 +914,52 @@ def measure(torch, np, K, dev, counts, fixed_sizes):
     row(K.FQ_EW, "Fq mul 2^22", lambda: K.fq_mul(a, b), lambda: K.plain_field_ew(1, "mul", a, b),
         3 * 96 * n, FQ_MUL_OPS * n)
     del a, b
-    n = 4096  # chunk totals of the 2^20 prove1 batch inversion, two levels down
+
+    def extra(key, shape, fn, plain, nbytes, ops, reps):
+        """Another shape of the last row's kernel: held against the plain
+        version, timed beside it and its bounds, into the row as key_*."""
+        box = {}
+        got = fn()
+        pms = cuda_ms(torch, lambda: box.__setitem__("want", plain()), 1, warm=False)
+        err = limbs_err(got, box.pop("want"))
+        del got
+        expect(err == 0, f"{rows[-1]['name']} {shape}: kernel == plain (max_abs_err {err})")
+        ms = cuda_ms(torch, fn, reps)
+        b, by = bound_ms(nbytes, ops)
+        rows[-1].update({f"{key}_shape": shape, f"{key}_ms": round(ms, 4),
+                         f"{key}_plain_ms": round(pms, 4), f"{key}_max_abs_err": err,
+                         f"{key}_bound_ms": round(b, 6), f"{key}_bound_by": by,
+                         f"{key}_imad_bound_ms": round(bound_ms(nbytes, ops, IMAD_PER_S)[0], 6)})
+        log(f"  {rows[-1]['name']:18s} {shape:28s} {ms:10.4f} ms  plain {pms:10.3f} ms  "
+            f"bound {b:8.6f} ms ({by})")
+
+    # K2.  The per-element inversion (batches up to BINV_EACH, and the tile
+    # totals of wider ones) at 4096 Fr, then Fq 4096 and both at 1; bound:
+    # the batch read and written once, and the gcd batches these inputs take.  The batch inversion at prove1's
+    # grand-product denominators (m_i * s_max = 2^20 Fr), then in Fq at the
+    # affine tree's widest level and setup's xy_powers family (2^22), at
+    # 2^10, and at 1 (the latency of every call); bound: the batch read and
+    # written once, 3 (n - 1) products and one inversion.
+    n = 4096
     a = T(rand_field(np, rng, FR, n))
-    e = FR.modulus - 2
-    fermat = (e.bit_length() + bin(e).count("1")) * FR_MUL_OPS * n
-    row(K.FIELD_INV, "Fr Fermat 4096", lambda: K.field_inv(0, a),
-        lambda: K.plain_field_inv(0, a), 2 * 64 * n, fermat)
-    n = 1 << 20  # prove1 grand-product denominators (m_i * s_max)
+    row(K.FIELD_INV, "Fr inverse 4096", lambda: K.field_inv(0, a),
+        lambda: K.plain_field_inv(0, a), 2 * 64 * n, inversion_ops(0, column_values(FR, a)))
+    for field, spec, n in ((1, FQ, 4096), (0, FR, 1), (1, FQ, 1)):
+        a = T(inversion_batch(np, rng, spec, n))
+        extra(f"{spec.name.lower()}_{n}", f"{spec.name} inverse {n}",
+              lambda: K.field_inv(field, a), lambda: K.plain_field_inv(field, a),
+              8 * spec.n_limbs * n, inversion_ops(field, column_values(spec, a)), 20)
+    n = 1 << 20
     a = T(rand_field(np, rng, FR, n))
     row(K.BATCH_INV, "Fr batch inverse 2^20", lambda: K.batch_inv(0, a),
-        lambda: K.plain_batch_inv(0, a), 2 * 64 * n, 3 * FR_MUL_OPS * n)
+        lambda: K.plain_batch_inv(0, a), *batch_inv_work(K, 0, a))
+    for n, reps in ((1 << 22, 5), (1 << 10, 50), (1, 50)):
+        a = T(inversion_batch(np, rng, FQ, n))
+        extra(f"fq_2^{n.bit_length() - 1}", f"Fq batch inverse 2^{n.bit_length() - 1}",
+              lambda: K.batch_inv(1, a), lambda: K.plain_batch_inv(1, a),
+              *batch_inv_work(K, 1, a), reps)
     del a
+    torch.cuda.empty_cache()
     # prove2's largest bivariate grid, [16, 16384, 512]: its X pass (axis 1,
     # n = 16384, two passes), its Y pass (axis 2, n = 512, one), and the same
     # 16384-point rows laid along axis 2 ([16, 512, 16384]).  Bound: the grid
@@ -941,8 +1114,17 @@ def measure(torch, np, K, dev, counts, fixed_sizes):
     row(K.AFF_POST, shape, lambda: K.aff_post(x1, y1, x2, y2, dinv),
         lambda: K.plain_aff_post(x1, y1, x2, y2, dinv), 7 * 96 * n, 3 * FQ_MUL_OPS * n)
     ms = cuda_ms(torch, lambda: K.g1_aff_add_batch((x1, y1), (x2, y2)), 3)
-    rows[-1]["g1_aff_add_batch_ms"] = round(ms, 4)
-    log(f"  g1_aff_add_batch (aff_pre + Fq batch inverse + aff_post) {shape}: {ms:.3f} ms")
+    # bound of the whole add: four coordinates read and two written; 3 (n - 1)
+    # products and one inversion for the denominators, three products a lane
+    ops = (6 * n - 3) * FQ_MUL_OPS + inversion_ops(1, [batch_total(K, 1, dinv)])
+    b, by = bound_ms(6 * 96 * n, ops)
+    rows[-1].update({"g1_aff_add_batch_ms": round(ms, 4),
+                     "g1_aff_add_batch_bound_ms": round(b, 4),
+                     "g1_aff_add_batch_bound_by": by,
+                     "g1_aff_add_batch_imad_bound_ms": round(
+                         bound_ms(6 * 96 * n, ops, IMAD_PER_S)[0], 4)})
+    log(f"  g1_aff_add_batch (aff_pre + Fq batch inverse + aff_post) {shape}: {ms:.3f} ms  "
+        f"bound {b:.4f} ms ({by})")
     return rows
 
 
@@ -1004,15 +1186,18 @@ def main() -> int:
         sigma, proof, counts = drive(torch, np, K, dev, fx, "pippenger")
     affine = [K.AFF_PRE.name, K.AFF_POST.name]
     expect_launches(counts, [n for n in counts if n not in affine], affine, "pippenger path")
+    log("  batch inversions by width: " + json.dumps(calls["batch_inv"]))
     log(f"[5c] K3 at each of the {len(calls['ntt'])} call signatures of phase 5 "
         f"(grid, axis, tables): kernel == plain, exact")
     check_ntt_calls(torch, K, dev, calls["ntt"])
 
     log("[5b] MSM core affine_tree: a 2^22-point MSM, then the main path again")
     msm_stats = affine_msm_check(torch, np, K, dev)
-    _, proof_b, counts_b = drive(torch, np, K, dev, fx, "affine_tree", sigma)
+    with recording(K) as calls_b:
+        _, proof_b, counts_b = drive(torch, np, K, dev, fx, "affine_tree", sigma)
+    log("  batch inversions by width: " + json.dumps(calls_b["batch_inv"]))
     expect(proof_b == proof, "affine_tree proof bytes == pippenger proof bytes")
-    expect_launches(counts_b, affine + [K.BATCH_INV.name],
+    expect_launches(counts_b, affine + [K.FIELD_INV.name, K.BATCH_INV.name],
                     [K.MSM_BUCKET_SUM.name, K.MSM_WINDOW.name], "affine_tree path")
     del sigma
     torch.cuda.empty_cache()
@@ -1021,6 +1206,11 @@ def main() -> int:
     counts.update({n: counts_b[n] for n in affine})
     rows = measure(torch, np, K, dev, counts, sorted(calls["fixed_base"]))
     rows[-1]["affine_tree_msm_2^22"] = msm_stats
+    binv_row = next(r for r in rows if r["name"] == K.BATCH_INV.name)
+    for kern in (K.FIELD_INV, K.BATCH_INV):
+        next(r for r in rows if r["name"] == kern.name)["launches_5b"] = counts_b[kern.name]
+    binv_row["widths_5"] = calls["batch_inv"]
+    binv_row["widths_5b"] = calls_b["batch_inv"]
     kernels_line = json.dumps({"kernels": rows})
 
     log(f"total {time.perf_counter() - t_all:.3f} s")

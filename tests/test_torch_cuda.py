@@ -61,6 +61,25 @@ def test_inversion_kernels(dev, field):
     assert torch.equal(K.batch_inv(field, a), K.plain_batch_inv(field, a))
 
 
+@pytest.mark.parametrize("width", ["1", "2", "each", "each+1", "each+tile+1"])
+@pytest.mark.parametrize("field", [0, 1])
+def test_batch_inversion_widths(dev, field, width):
+    """Either side of the one-launch width and past a tile, zeros at tile
+    and warp edges: kernel == plain, one launch or three."""
+    spec = (FR, FQ)[field]
+    each = K.BINV_EACH[field]
+    tile = K.BINV_THREADS * K.binv_per_thread(field, each + 1)
+    n = {"1": 1, "2": 2, "each": each, "each+1": each + 1, "each+tile+1": each + tile + 1}[width]
+    a = rand(spec, n + 1, 4, dev)[:, 1:].contiguous()
+    if n > 2:
+        edges = [e for b in range(0, n, tile) for e in (b, b + tile - 1, b + 31, b + 32) if e < n]
+        a[:, edges] = 0
+    before = K.BATCH_INV.launches + K.FIELD_INV.launches
+    got = K.batch_inv(field, a)
+    assert K.BATCH_INV.launches + K.FIELD_INV.launches - before == (1 if n <= each else 3)
+    assert torch.equal(got, K.plain_batch_inv(field, a))
+
+
 def plain_ntt_axis(data, axis, inverse, coset):
     """`ops.ntt.ntt_axis` through the plain versions of K1 and K3."""
     n = data.shape[axis]

@@ -42,8 +42,8 @@ SIGNATURES = {
     "field_ew": {"tzk_field_ew": [_I, _I, _P, _P, _P, _LL, _LL, _LL, _P]},
     "field_inv": {
         "tzk_field_inv": [_I, _P, _P, _LL, _P],
-        "tzk_batch_inv_fwd": [_I, _P, _P, _P, _LL, _I, _P],
-        "tzk_batch_inv_bwd": [_I, _P, _P, _P, _P, _LL, _I, _P],
+        "tzk_batch_inv_up": [_I, _P, _P, _P, _LL, _I, _P],
+        "tzk_batch_inv_down": [_I, _P, _P, _P, _LL, _I, _P],
     },
     "ntt": {
         "tzk_ntt_passes": [_LL, _LL],

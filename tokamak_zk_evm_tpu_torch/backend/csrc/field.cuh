@@ -1,7 +1,7 @@
-// BLS12-381 Fr / Fq Montgomery arithmetic of K1 (field_ew.cu), K2
-// (field_inv.cu) and K5 (g1_affine.cu): a generic CIOS product on 64-bit
-// integers, one template over the field.  K3 and K4 use the carry-chain
-// arithmetic of fr_chain.cuh and fq_chain.cuh instead.
+// BLS12-381 Fr / Fq Montgomery arithmetic of K1 (field_ew.cu) and K5
+// (g1_affine.cu): a generic CIOS product on 64-bit integers, one template
+// over the field.  K2, K3 and K4 use the carry-chain arithmetic of
+// fr_chain.cuh and fq_chain.cuh instead.
 //
 // Interchange layout (shared with the JAX package and the plain PyTorch
 // versions): an array of B field elements is limb-major int32 [L, B] holding
@@ -24,25 +24,18 @@ static __constant__ uint32_t FR_MOD[8] = {
 static __constant__ uint32_t FR_ONE[8] = {
     0xfffffffeu, 0x00000001u, 0x00034802u, 0x5884b7fau,
     0xecbc4ff5u, 0x998c4fefu, 0xacc5056fu, 0x1824b159u};
-static __constant__ uint32_t FR_EXP[8] = {  // r - 2
-    0xffffffffu, 0xfffffffeu, 0xfffe5bfeu, 0x53bda402u,
-    0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
 static __constant__ uint32_t FQ_MOD[12] = {
     0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
     0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
 static __constant__ uint32_t FQ_ONE[12] = {
     0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau, 0x5f489857u,
     0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u};
-static __constant__ uint32_t FQ_EXP[12] = {  // q - 2
-    0xffffaaa9u, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
-    0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
 
 struct Fr {
   static constexpr int N = 8;
   static constexpr uint32_t N0 = 0xffffffffu;
   __device__ __forceinline__ static uint32_t p(int i) { return FR_MOD[i]; }
   __device__ __forceinline__ static uint32_t one(int i) { return FR_ONE[i]; }
-  __device__ __forceinline__ static uint32_t exp(int i) { return FR_EXP[i]; }
 };
 
 struct Fq {
@@ -50,7 +43,6 @@ struct Fq {
   static constexpr uint32_t N0 = 0xfffcfffdu;
   __device__ __forceinline__ static uint32_t p(int i) { return FQ_MOD[i]; }
   __device__ __forceinline__ static uint32_t one(int i) { return FQ_ONE[i]; }
-  __device__ __forceinline__ static uint32_t exp(int i) { return FQ_EXP[i]; }
 };
 
 // element i of a limb-major [2N, stride] int32 array -> N words
@@ -203,22 +195,6 @@ __device__ __forceinline__ void mul(uint32_t (&r)[F::N], const uint32_t (&a)[F::
   for (int k = 0; k < N; ++k) o[k] = t[k];
   cond_sub<F>(o, t[N]);
   copy<F>(r, o);
-}
-
-// Fermat inverse a^(p-2); 0 maps to 0.
-template <class F>
-__device__ __forceinline__ void inv(uint32_t (&r)[F::N], const uint32_t (&a)[F::N]) {
-  uint32_t acc[F::N], base[F::N];
-  set_one<F>(acc);
-  copy<F>(base, a);
-  for (int i = 0; i < F::N; ++i) {
-    uint32_t e = F::exp(i);
-    for (int bit = 0; bit < 32; ++bit) {
-      if ((e >> bit) & 1u) mul<F>(acc, acc, base);
-      mul<F>(base, base, base);
-    }
-  }
-  copy<F>(r, acc);
 }
 
 }  // namespace tzk

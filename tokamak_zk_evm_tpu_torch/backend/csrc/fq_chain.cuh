@@ -1,7 +1,8 @@
 // BLS12-381 Fq Montgomery arithmetic on PTX carry chains, and the complete
 // G1 jacobian formulas over it: the arithmetic of K4's kernels (msm.cu, and
-// g1.cu's fixed-base kernel).  fr_chain.cuh builds K3's Fr arithmetic on its
-// carry primitives; field.cuh stays the arithmetic of K1, K2 and K5.
+// g1.cu's fixed-base kernel) and of K2's Fq inversions (field_inv.cu).
+// fr_chain.cuh builds K2's and K3's Fr arithmetic on its carry primitives;
+// field.cuh stays the arithmetic of K1 and K5.
 //
 // Values are 12 little-endian 32-bit words, Montgomery form (R = 2^384),
 // fully reduced into [0, q) after every operation, so results are

@@ -12,13 +12,14 @@ A wrapper dispatches on the device of its tensor argument:
   * any other device raises.  Nothing falls back.
 
 The kernels (see each source's header for the TPU kernel it replaces, what
-bounds it on the card, and what its design does about that; K1, K2 and K5 run
-on `csrc/field.cuh`'s arithmetic, K3 on `fr_chain.cuh`'s and K4 on
-`fq_chain.cuh`'s carry chains):
+bounds it on the card, and what its design does about that; K1 and K5 run
+on `csrc/field.cuh`'s arithmetic, K2 and K3 on `fr_chain.cuh`'s and K2 and
+K4 on `fq_chain.cuh`'s carry chains):
 
   K1 csrc/field_ew.cu   FR_EW / FQ_EW    add, sub, mul, neg
-  K2 csrc/field_inv.cu  FIELD_INV        Fermat inversion
-                        BATCH_INV        chunked batch inversion (fwd + bwd)
+  K2 csrc/field_inv.cu  FIELD_INV        inversion, an extended gcd a thread
+                        BATCH_INV        tiled batch inversion (one tile, or
+                                         up / top / down)
   K3 csrc/ntt.cu        NTT              NTT along either grid axis, stages
                                          fused in shared memory, one or two
                                          passes, the scale folded in
@@ -188,8 +189,24 @@ def fq_neg(a):
 # K2: inversion
 # ---------------------------------------------------------------------------
 
-BINV_CHUNK = 16  # elements per thread in the batch-inversion passes
-BINV_DIRECT = 4096  # chunk totals up to this count go to the Fermat kernel
+# K2's batch inversion: batches up to BINV_EACH[field] elements invert each
+# element with its own extended gcd (`field_inv`, one launch); wider ones run
+# Montgomery's trick over tiles of BINV_THREADS x per-thread elements (up,
+# the tile totals through `field_inv`, down: three launches).  Both choices
+# come from `utils/bench_inv.py`'s table on one H100: one gcd each is the
+# faster route up to 2^16 elements in either field, and above it the tiled
+# one is fastest with about B / 2^16 elements a thread (some 256 tiles), up
+# to 32.
+BINV_THREADS = 256  # csrc/field_inv.cu THREADS
+BINV_EACH = {0: 1 << 16, 1: 1 << 16}
+BINV_MAX_PER_THREAD = 32
+
+
+def binv_per_thread(field: int, B: int) -> int:
+    """Elements a thread walks in the tiled batch inversion of B elements:
+    the power of two at or below B / 2^16, within [1, BINV_MAX_PER_THREAD]."""
+    k = B >> 16
+    return 1 if k == 0 else min(BINV_MAX_PER_THREAD, 1 << (k.bit_length() - 1))
 
 
 def plain_field_inv(field: int, a):
@@ -198,7 +215,7 @@ def plain_field_inv(field: int, a):
 
 
 def field_inv(field: int, a):
-    """Per-element Fermat inverse, 0 -> 0."""
+    """Per-element inverse (one extended gcd a thread on the card), 0 -> 0."""
     _check(a, FR_L if field == 0 else FQ_L, "a")
     if not on_card(a):
         return plain_field_inv(field, a)
@@ -218,13 +235,15 @@ def fq_inv(a):
 
 
 PLAIN_BINV_DIRECT = 512  # batches up to this size: one inversion per element
+PLAIN_BINV_CHUNK = 16  # elements a vector lane walks in the plain version
 
 
 def plain_batch_inv(field: int, a):
-    """Plain version of K2's batch inversion: the same chunked walk, one
-    vector lane per chunk.  A small batch inverts element by element
-    instead (the same values): the walk's 48 dependent products cost more
-    than a few hundred host inversions."""
+    """Plain version of K2's batch inversion: a chunked walk, one vector lane
+    per chunk of PLAIN_BINV_CHUNK contiguous elements (the kernel's tiles
+    give the same values).  A small batch inverts element by element
+    instead: the walk's 48 dependent products cost more than a few hundred
+    host inversions."""
     F = _FR if field == 0 else _FQ
     x = a.to(torch.int64)
     L, B = x.shape
@@ -232,7 +251,7 @@ def plain_batch_inv(field: int, a):
         return a.clone()
     if B <= PLAIN_BINV_DIRECT:
         return limbs.inv(F, x).to(torch.int32)
-    K = BINV_CHUNK
+    K = PLAIN_BINV_CHUNK
     nch = -(-B // K)
     pad = nch * K - B
     xp = torch.cat([x, x.new_zeros(L, pad)], 1).reshape(L, nch, K)
@@ -255,25 +274,26 @@ def plain_batch_inv(field: int, a):
 
 
 def batch_inv(field: int, a):
-    """Montgomery batch inversion over the batch axis, 0 -> 0."""
+    """Montgomery batch inversion over the batch axis, 0 -> 0: up to
+    BINV_EACH[field] elements one inversion each (one launch); above, tile
+    prefixes and totals, the totals' inversions, the walk back (three)."""
     _check(a, FR_L if field == 0 else FQ_L, "a")
     if not on_card(a):
         return plain_batch_inv(field, a)
     B = a.shape[1]
-    if B == 0:
-        return a.clone()
-    nch = -(-B // BINV_CHUNK)
-    pre = torch.empty_like(a)
-    tot = torch.empty((a.shape[0], nch), dtype=torch.int32, device=a.device)
-    s = _stream(a)
-    build.call("field_inv", "tzk_batch_inv_fwd", field, _ptr(a), _ptr(pre), _ptr(tot), B,
-               BINV_CHUNK, s)
-    BATCH_INV.launches += 1
-    # chunk totals are products of nonzero elements, so never zero
-    tinv = field_inv(field, tot) if nch <= BINV_DIRECT else batch_inv(field, tot)
+    if B <= BINV_EACH[field]:
+        return field_inv(field, a)
+    K = binv_per_thread(field, B)
     out = torch.empty_like(a)
-    build.call("field_inv", "tzk_batch_inv_bwd", field, _ptr(a), _ptr(pre), _ptr(tinv),
-               _ptr(out), B, BINV_CHUNK, s)
+    # tile totals are products of nonzero elements (or one), so never zero
+    tot = torch.empty((a.shape[0], -(-B // (BINV_THREADS * K))), dtype=torch.int32,
+                      device=a.device)
+    s = _stream(a)
+    build.call("field_inv", "tzk_batch_inv_up", field, _ptr(a), _ptr(out), _ptr(tot), B, K, s)
+    BATCH_INV.launches += 1
+    tinv = field_inv(field, tot)
+    build.call("field_inv", "tzk_batch_inv_down", field, _ptr(a), _ptr(out), _ptr(tinv), B, K,
+               s)
     BATCH_INV.launches += 1
     return out
 
