@@ -22,7 +22,11 @@ Phases, in order (any mismatch or exception exits non-zero):
      (`pow`) on a sample, a * a^-1 == 1, and one launch or three; K3
      forward and inverse
      along both axes of a 16384 x 512 grid, on transforms past 16384 points
-     (rows of 2^20, columns of 2^18), and a coset round trip (K1 and K3); K4
+     (rows of 2^20, columns of 2^18), on a 2^23-point row and column (past
+     the kernel's two passes: `fr_ntt`'s four-step split, two K3 calls and a
+     K1 twiddle product), and a coset round trip (K1 and K3); g1_add,
+     g1_dbl and g1_to_affine (K1 / K2 chains) with every case planted
+     (P+Q, P+P, P+(-P), inf+Q, P+inf, inf+inf, a broadcast operand); K4
      fixed-base at 2^12 with planted scalars (0, 1, r-1, all-ones digits, a
      nonzero top window alone, repeats) on the 12-bit table built on the
      card, against the plain version on the 8-bit table and host scalar
@@ -49,6 +53,15 @@ Phases, in order (any mismatch or exception exits non-zero):
      must equal phase 5's, it must verify, and K5 and the batch inversion
      must have launched while K4's MSM stages did not; the widths of its
      batch inversions are counted by power of two;
+  5d. the file-contract path: `build_synthetic()` staged as reference-layout
+     files (library dir, the synthesizer's three JSONs), then the port's CLI
+     (`cli.main`, in this process, counters set to 0 before and read after):
+     setup --fixed-tau --format both, preprocess, prove --deterministic,
+     verify; both CRS formats must load to phase 5's sigma, proof.json must
+     be the in-process Mixer.zero() proof and hash to the JAX package's
+     pinned digest, verify must print true and, for a proof with one limb
+     changed, false; every kernel of the path but K5 must launch; `python -m
+     tokamak_zk_evm_tpu_torch doctor` must pass;
   6. each kernel at the main path's shapes: held against its plain version
      there (every output of K1, K2, K3 on both axes, K5, the fixed-base
      kernel at 2^22 (against the plain version on the 8-bit table) and every
@@ -251,6 +264,7 @@ def check_kernels(torch, np, K, dev):
                    f"n={shape[axis - 1]} axis {axis} over {list(shape)} "
                    f"{'inverse' if inverse else 'forward'}")
         del long
+    check_ntt_past_ceiling(torch, K, dev)
     ev = NT.bintt(grid, coset_x=7, coset_y=5)
     expect(torch.equal(ev, plain_bintt(K, NT, grid, False, 7, 5)),
            "bintt forward, cosets (7, 5): kernel == plain")
@@ -295,6 +309,79 @@ def check_kernels(torch, np, K, dev):
     msm_oracle_check(torch, np, K, dev, rng, 1 << 12, plain=True)
     log("[3] K4 MSM at 2^22 against the O(1) oracle")
     msm_oracle_check(torch, np, K, dev, rng, 1 << 22, plain=False)
+
+
+def long_ntt_tables(torch, K, n, inverse, dev):
+    """(pows, scale) of an n-point transform, the twiddles formed on the card
+    as plain products w^(a 2^12) * w^b of two host tables (a host table of
+    2^23 powers takes tens of seconds to pack)."""
+    from tokamak_zk_evm_tpu_torch.fields import R_MOD, fr_root_of_unity
+    from tokamak_zk_evm_tpu_torch.ops import field as F
+
+    w = fr_root_of_unity(n)
+    if inverse:
+        w = pow(w, -1, R_MOD)
+    lo = F.tensor(F.fr_powers(w, 1 << 12), dev)
+    hi = F.tensor(F.fr_powers(pow(w, 1 << 12, R_MOD), n >> 12), dev)
+    pows = K.plain_field_ew(0, "mul", hi.repeat_interleave(1 << 12, dim=1).contiguous(), lo)
+    scale = F.tensor(F.fr_mont(pow(n, -1, R_MOD)), dev) if inverse else None
+    return pows, scale
+
+
+def check_ntt_past_ceiling(torch, K, dev, n=1 << 23):
+    """K3 past its two passes: a 2^23-point axis (the four-step split over
+    two K3 calls and a K1 twiddle product), forward along rows and inverse
+    along a column, against the plain version, exact."""
+    for shape, axis, inverse in (((1, n), 2, False), ((n, 1), 1, True)):
+        data = rand_fr(torch, shape, 17 + axis, dev)
+        pows, scale = long_ntt_tables(torch, K, n, inverse, dev)
+        before = K.NTT.launches
+        got = K.fr_ntt(data, pows, scale, axis=axis)
+        calls = K.NTT.launches - before
+        expect(torch.equal(got, K.plain_ntt(data, pows, scale, axis)),
+               f"n=2^{n.bit_length() - 1} axis {axis} {'inverse' if inverse else 'forward'} (split, {calls} K3 "
+               f"launches): kernel == plain")
+        del data, got, pows, scale
+    torch.cuda.empty_cache()
+
+
+def check_curve_ops(torch, np, K, dev, n=6 * 4096):
+    """g1_add, g1_dbl and g1_to_affine (chains of K1 and K2 launches) on the
+    card against their plain versions, exact, on jacobian points with Z != 1
+    (doubled affine points): lane i takes case i % 6 of P+Q, P+P, P+(-P),
+    inf+Q, P+inf, inf+inf; the add also with its second operand broadcast
+    (rep 4); and a sample of lanes against host curve adds."""
+    from tokamak_zk_evm_tpu_torch.host.curve import G1
+
+    log(f"[3] g1_add / g1_dbl / g1_to_affine at {n} lanes, every case planted: "
+        f"kernels == plain, exact")
+    x1, y1, x2, y2 = planted_affine(torch, np, K, dev, np.random.default_rng(6), n, "all")
+
+    def jac(x, y):
+        inf = (x == 0).all(0) & (y == 0).all(0)
+        one = K._FQ.one(dev).expand(K.FQ_L, n).to(torch.int32)
+        z = torch.where(inf[None, :], torch.zeros_like(one), one)
+        return K.plain_g1_dbl((x, y, z.contiguous()))
+
+    P, Q = jac(x1, y1), jac(x2, y2)
+    same = lambda a, b: all(torch.equal(u, v) for u, v in zip(a, b))  # noqa: E731
+    S = K.g1_add(P, Q)
+    expect(same(S, K.plain_g1_add(P, Q)), "g1_add kernels == plain")
+    Qr = tuple(c[:, : n // 4].contiguous() for c in Q)
+    expect(same(K.g1_add(P, Qr, rep=4), K.plain_g1_add(P, Qr, rep=4)),
+           "g1_add, second operand broadcast (rep 4) == plain")
+    expect(same(K.g1_dbl(P), K.plain_g1_dbl(P)), "g1_dbl kernels == plain")
+    A = K.g1_to_affine(S)
+    expect(same(A, K.plain_g1_to_affine(S)), "g1_to_affine kernels == plain")
+    expect(bool((A[2].view(-1, 6)[:, 2] == 1).all()) and bool((A[2].view(-1, 6)[:, 5] == 1).all()),
+           "P+(-P) and inf+inf lanes are infinity")
+    m = 300
+    idx = list(range(m))
+    want = [G1.to_affine(G1.add(G1.from_affine(p), G1.from_affine(q)))
+            for p, q in zip(affine_host(P, idx), affine_host(Q, idx))]
+    expect(affine_host(S, idx) == want, f"g1_add == host curve adds on {m} lanes")
+    del x1, y1, x2, y2, P, Q, S, A
+    torch.cuda.empty_cache()
 
 
 def host_inverses_match(spec, a, out, idx) -> bool:
@@ -584,6 +671,147 @@ def drive(torch, np, K, dev, fx, core, sigma=None):
     del prover, pre
     torch.cuda.empty_cache()
     return sigma, canonical_proof_bytes(proof), counts
+
+
+def sigma_equal(torch, a, b) -> bool:
+    """Every device family byte-equal and every host point equal."""
+    s1, t1 = a.sigma_1, b.sigma_1
+    for name in ("xy_powers", "gamma_inv_o_inst", "eta_inv_li_o_inter_alpha4_kj",
+                 "delta_inv_li_o_prv"):
+        if not all(torch.equal(u, v) for u, v in zip(getattr(s1, name), getattr(t1, name))):
+            return False
+    host = ("x", "y", "delta", "eta", "delta_inv_alphak_xh_tx", "delta_inv_alpha4_xj_tx",
+            "delta_inv_alphak_yi_ty", "h_max", "rs_y")
+    return (all(getattr(s1, k) == getattr(t1, k) for k in host)
+            and (a.G, a.H, a.lagrange_KL, a.sigma_2) == (b.G, b.H, b.lagrange_KL, b.sigma_2))
+
+
+def drive_files(torch, np, K, dev, fx, sigma):
+    """Phase 5d: the synthetic full shape staged as reference-layout files
+    (library dir, the synthesizer's three JSONs) in a scratch directory
+    under the checkout's `.cache/`, then the port's CLI in this process:
+    setup --fixed-tau --format both, preprocess, prove --deterministic,
+    verify; every launch counter set to 0 just before and read just after.
+    Then: both CRS formats load to phase 5's `sigma`, proof.json is the
+    in-process Mixer.zero() proof on that `sigma` and hashes to the JAX
+    package's pinned digest, a proof with one limb changed prints false,
+    and `python -m tokamak_zk_evm_tpu_torch doctor` passes.  The directory
+    is deleted at the end.  -> (counts, seconds)."""
+    import io
+    import shutil
+    import tempfile
+
+    from tokamak_zk_evm_tpu_torch import cli
+    from tokamak_zk_evm_tpu_torch.io import artifacts as art, crs, rkyv_crs
+    from tokamak_zk_evm_tpu_torch.models.protocol import Mixer
+    from tokamak_zk_evm_tpu_torch.models.prover import Prover
+    from tokamak_zk_evm_tpu_torch.testing.synthetic import FULLSHAPE_PROOF_SHA256
+
+    def run(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--device", str(dev)] + argv)
+        lines = out.getvalue().strip().splitlines()
+        return rc, lines[-1] if lines else ""
+
+    cache = os.path.join(ROOT, ".cache")
+    os.makedirs(cache, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_5d_", dir=cache)
+    try:
+        lib, synth, crs_dir, pre, prf = (os.path.join(tmp, d) for d in
+                                         ("library", "synthesizer", "crs", "pre", "proof"))
+        t0 = time.perf_counter()
+        os.makedirs(synth)
+        art.save_library(lib, fx.params, fx.infos, fx.library)
+        art.save_placement_variables(fx.placements, os.path.join(synth, "placementVariables.json"))
+        art.save_instance(fx.instance, os.path.join(synth, "instance.json"))
+        art.save_permutation(fx.permutation, os.path.join(synth, "permutation.json"))
+        log(f"  staged the library and the synthesizer outputs in "
+            f"{time.perf_counter() - t0:.3f} s (host)")
+        stages = (
+            ("setup", ["setup", "--library", lib, "--output", crs_dir, "--fixed-tau",
+                       "--format", "both"]),
+            ("preprocess", ["preprocess", "--crs", crs_dir, "--library", lib,
+                            "--synthesizer", synth, "--output", pre]),
+            ("prove", ["prove", "--crs", crs_dir, "--library", lib, "--synthesizer", synth,
+                       "--output", prf, "--deterministic"]),
+            ("verify", ["verify", "--crs", crs_dir, "--library", lib, "--preprocess", pre,
+                        "--proof", prf, "--synthesizer", synth]),
+        )
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_counts()
+        t, rcs = {}, {}
+        for name, argv in stages:
+            t0 = time.perf_counter()
+            rcs[name] = run(argv)
+            torch.cuda.synchronize()
+            t[name] = time.perf_counter() - t0
+        counts = K.counts()
+        peak = torch.cuda.max_memory_allocated()
+        sizes = {f: os.path.getsize(os.path.join(crs_dir, f)) for f in sorted(os.listdir(crs_dir))}
+        npy = sum(v for f, v in sizes.items() if f.endswith(".npy"))
+        log("  seconds: " + json.dumps({k: round(v, 3) for k, v in t.items()}))
+        log(f"  CRS files: npy {npy} B in {sum(f.endswith('.npy') for f in sizes)} files, "
+            f"combined_sigma.rkyv {sizes['combined_sigma.rkyv']} B, sigma_preprocess.rkyv "
+            f"{sizes['sigma_preprocess.rkyv']} B, sigma_meta.json {sizes['sigma_meta.json']} B, "
+            f"sigma_verify.json {sizes['sigma_verify.json']} B")
+        log("  kernels " + json.dumps(counts))
+        log(f"  peak device memory {peak / 2**30:.3f} GiB")
+        for name in ("setup", "preprocess", "prove"):
+            expect(rcs[name][0] == 0, f"cli {name} exits 0")
+        expect(rcs["verify"] == (0, "true"), "cli verify prints true (exit 0)")
+
+        with open(os.path.join(prf, "proof.json")) as f:
+            d = json.load(f)
+        bad = {k: list(v) for k, v in d.items()}
+        last = int(bad["proof_entries_part2"][-1], 16) ^ 1
+        bad["proof_entries_part2"][-1] = "0x" + last.to_bytes(32, "big").hex()
+        bad_dir = os.path.join(tmp, "proof_bad")
+        os.makedirs(bad_dir)
+        with open(os.path.join(bad_dir, "proof.json"), "w") as f:
+            json.dump(bad, f)
+        rc, out = run(["verify", "--crs", crs_dir, "--library", lib, "--preprocess", pre,
+                       "--proof", bad_dir, "--synthesizer", synth])
+        expect((rc, out) == (1, "false"), "cli verify of a proof with one limb changed prints "
+               "false (exit 1)")
+
+        t0 = time.perf_counter()
+        loaded = crs.load_sigma(crs_dir, dev)
+        torch.cuda.synchronize()
+        log(f"  npy CRS loaded in {time.perf_counter() - t0:.3f} s")
+        expect(sigma_equal(torch, loaded, sigma), "npy CRS (crs.load_sigma) == phase 5's sigma")
+        del loaded
+        t0 = time.perf_counter()
+        loaded = rkyv_crs.read_combined_sigma(os.path.join(crs_dir, "combined_sigma.rkyv"),
+                                              fx.params, device=dev)
+        torch.cuda.synchronize()
+        log(f"  combined_sigma.rkyv read in {time.perf_counter() - t0:.3f} s")
+        expect(sigma_equal(torch, loaded, sigma),
+               "rkyv CRS (rkyv_crs.read_combined_sigma) == phase 5's sigma")
+        del loaded
+        torch.cuda.empty_cache()
+
+        proof, _ = Prover(fx.params, sigma, fx.library, fx.infos, fx.placements, fx.permutation,
+                          fx.instance, mixer=Mixer.zero(), device=dev).prove()
+        expect(d == art.proof_to_solidity(proof),
+               "proof.json == the in-process Mixer.zero() proof on phase 5's sigma")
+        digest = hashlib.sha256(art.canonical_proof_bytes(art.proof_from_solidity(d))).hexdigest()
+        expect(digest == FULLSHAPE_PROOF_SHA256,
+               f"proof.json digest {digest[:16]}... is the JAX package's pinned one")
+
+        t0 = time.perf_counter()
+        doc = subprocess.run([sys.executable, "-m", "tokamak_zk_evm_tpu_torch", "doctor"],
+                             cwd=ROOT, capture_output=True, text=True, timeout=300)
+        for line in doc.stderr.strip().splitlines():
+            log(f"    {line}")
+        expect(doc.returncode == 0 and doc.stdout.strip().splitlines()[-1:] == ["true"],
+               f"python -m tokamak_zk_evm_tpu_torch doctor prints true, exit 0 "
+               f"({time.perf_counter() - t0:.3f} s)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts, t
 
 
 def expect_launches(counts, ran, idle, path):
@@ -992,6 +1220,24 @@ def measure(torch, np, K, dev, counts, fixed_sizes):
                              bound_ms(grid_bytes, ops * FR_MUL_OPS, IMAD_PER_S)[0], 4)})
         log(f"  {K.NTT.name:18s} {shape:28s} {ms:10.3f} ms  bound {b:8.4f} ms ({by})")
     del grid, rows_t
+    # past the two passes: a 2^23-point row through the four-step split
+    # (two K3 calls, the twiddles gathered and multiplied by K1, two
+    # transposes); bound: the row read and written once and the products of
+    # one radix-2 transform
+    n = 1 << 23
+    long = rand_fr(torch, (1, n), 23, dev)
+    pows, _ = long_ntt_tables(torch, K, n, False, dev)
+    err = limbs_err(K.fr_ntt(long, pows, axis=2), K.plain_ntt(long, pows, axis=2))
+    expect(err == 0, f"ntt 1 x 2^23 (split): kernel == plain (max_abs_err {err})")
+    ms = cuda_ms(torch, lambda: K.fr_ntt(long, pows, axis=2), 3)
+    nbytes, ops = 2 * 64 * n, ntt_products(n, 1) * FR_MUL_OPS
+    b, by = bound_ms(nbytes, ops)
+    rows[-1].update({"split_shape": "1 x 2^23, axis 2 (n=2^23, four-step split)",
+                     "split_ms": round(ms, 4), "split_max_abs_err": err,
+                     "split_bound_ms": round(b, 4), "split_bound_by": by,
+                     "split_imad_bound_ms": round(bound_ms(nbytes, ops, IMAD_PER_S)[0], 4)})
+    log(f"  {K.NTT.name:18s} {'1 x 2^23 (split)':28s} {ms:10.3f} ms  bound {b:8.4f} ms ({by})")
+    del long, pows
     torch.cuda.empty_cache()
     # The fixed-base op at setup's largest family (xy_powers, 8192 x 512 =
     # 2^22 scalars) on the 12-bit table, held against the plain version on
@@ -1173,6 +1419,7 @@ def main() -> int:
                f"({len(frames)} functions found)")
 
     check_kernels(torch, np, K, dev)
+    check_curve_ops(torch, np, K, dev)
     check_affine(torch, np, K, dev)
 
     log("[4] golden toy proof on the card")
@@ -1199,6 +1446,12 @@ def main() -> int:
     expect(proof_b == proof, "affine_tree proof bytes == pippenger proof bytes")
     expect_launches(counts_b, affine + [K.FIELD_INV.name, K.BATCH_INV.name],
                     [K.MSM_BUCKET_SUM.name, K.MSM_WINDOW.name], "affine_tree path")
+
+    log("[5d] the file-contract path: the port's CLI, setup -> preprocess -> prove -> verify "
+        f"through files at the synthetic full shape ({gpu_line()})")
+    counts_d, _ = drive_files(torch, np, K, dev, fx, sigma)
+    expect_launches(counts_d, [n for n in counts_d if n not in affine], affine,
+                    "file-contract path (5d)")
     del sigma
     torch.cuda.empty_cache()
 
@@ -1209,6 +1462,8 @@ def main() -> int:
     binv_row = next(r for r in rows if r["name"] == K.BATCH_INV.name)
     for kern in (K.FIELD_INV, K.BATCH_INV):
         next(r for r in rows if r["name"] == kern.name)["launches_5b"] = counts_b[kern.name]
+    for r in rows:
+        r["launches_5d"] = counts_d[r["name"]]
     binv_row["widths_5"] = calls["batch_inv"]
     binv_row["widths_5b"] = calls_b["batch_inv"]
     kernels_line = json.dumps({"kernels": rows})

@@ -258,3 +258,52 @@ def test_affine_tree_matches_pippenger(dev):
     want = TM.msm(sc, px, py, pinf)
     with TM.use_core("affine_tree"):
         assert TM.msm(sc, px, py, pinf) == want
+
+
+@pytest.mark.parametrize("shape,axis", [((3, 1 << 12), 2), ((1 << 12, 5), 1)])
+def test_ntt_past_two_passes(dev, shape, axis, monkeypatch):
+    """`fr_ntt` past `NTT_MAX_N` runs the four-step split (two K3 calls and
+    a K1 twiddle product), here at 2^12 points with the ceiling lowered to
+    2^10 so that the split runs on a small grid (`chip_smoke.py` phase 3
+    runs it at 2^23)."""
+    n = shape[axis - 1]
+    monkeypatch.setattr(K, "NTT_MAX_N", 1 << 10)
+    data = rand(FR, shape[0] * shape[1], 41, dev).reshape((16,) + shape)
+    for inverse in (False, True):
+        pows, scale = NT._tables.__wrapped__(n, inverse, dev)
+        before = K.NTT.launches
+        got = K.fr_ntt(data, pows, scale, axis)
+        assert K.NTT.launches - before >= 2
+        assert torch.equal(got, K.plain_ntt(data, pows, scale, axis))
+        assert torch.equal(K.ntt_split(data, pows, scale, axis, 8), got)
+
+
+@pytest.mark.parametrize("rep", [1, 3])
+def test_curve_ops_planted(dev, rep):
+    """g1_add / g1_dbl / g1_to_affine on the card == their plain versions,
+    with P+Q, P+P, P+(-P), inf+Q, P+inf, inf+inf lanes, jacobian inputs with
+    Z != 1, and (rep 3) the second operand broadcast."""
+    from tokamak_zk_evm_tpu_torch.fields import Q_MOD
+    from tokamak_zk_evm_tpu_torch.host.curve import g1_scalar_mul_affine
+    from tokamak_zk_evm_tpu_torch.ops import curve as TC
+
+    rng = np.random.default_rng(8 + rep)
+    base = [g1_scalar_mul_affine(G1.gen, int(k)) for k in rng.integers(1, 1 << 40, size=12)]
+    a, b = [], []
+    for i in range(36):
+        p, q = base[i % 12], base[(i * 5 + 1) % 12]
+        case = i % 6
+        a.append(None if case in (3, 5) else p)
+        b.append({1: p, 2: (p[0], (-p[1]) % Q_MOD), 4: None, 5: None}.get(case, q))
+    P = K.plain_g1_dbl(TC.affine_to_jac(*TC.pack_affine(a, dev)))
+    Q = K.plain_g1_dbl(TC.affine_to_jac(*TC.pack_affine(b, dev)))
+    if rep > 1:
+        Q = tuple(c[:, : 36 // rep].contiguous() for c in Q)
+    got, want = K.g1_add(P, Q, rep=rep), K.plain_g1_add(P, Q, rep=rep)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(K.g1_dbl(P), K.plain_g1_dbl(P)))
+    assert all(torch.equal(g, w) for g, w in zip(K.g1_to_affine(got), K.plain_g1_to_affine(got)))
+    if rep == 1:
+        want = [G1.to_affine(G1.add(G1.double(G1.from_affine(p)), G1.double(G1.from_affine(q))))
+                for p, q in zip(a, b)]
+        assert _affine_jac(got) == want

@@ -5,8 +5,11 @@
   digest;
 * no file of the port and not `chip_smoke.py` names `jax` or
   `tokamak_zk_evm_tpu` in an import;
-* the entry points raise without a CUDA device unless given device="cpu";
-* the port's copies of the JAX-free host modules agree with the originals.
+* the entry points (and the CRS loaders and the CLI) raise without a CUDA
+  device unless given device="cpu";
+* the port's copies of the JAX-free host modules agree with the originals,
+  the I/O ones (`io/artifacts.py`, `io/rkyv_oracle.py`,
+  `io/subcircuit_library.py`) file for file on the toy fixture.
 """
 
 import ast
@@ -81,6 +84,9 @@ def _entry_points():
     from tokamak_zk_evm_tpu_torch.models.verifier import Verifier
     from tokamak_zk_evm_tpu_torch.testing.fixtures import build_fixture
 
+    from tokamak_zk_evm_tpu_torch.cli import main
+    from tokamak_zk_evm_tpu_torch.io import crs, rkyv_crs
+
     fx = build_fixture()
     return {
         "generate_sigma": lambda: generate_sigma(fx.params, Tau.fixed(), fx.library, fx.infos),
@@ -88,10 +94,14 @@ def _entry_points():
                                  fx.permutation, fx.instance),
         "preprocess": lambda: preprocess(None, fx.permutation, fx.instance, fx.params),
         "Verifier": lambda: Verifier(fx.params, None, None, fx.instance, None),
+        "load_sigma": lambda: crs.load_sigma("no-such-dir"),
+        "read_combined_sigma": lambda: rkyv_crs.read_combined_sigma("no-such-file", fx.params),
+        "cli": lambda: main(["doctor"]),
     }
 
 
-@pytest.mark.parametrize("name", ["generate_sigma", "Prover", "preprocess", "Verifier"])
+@pytest.mark.parametrize("name", ["generate_sigma", "Prover", "preprocess", "Verifier",
+                                  "load_sigma", "read_combined_sigma", "cli"])
 def test_entry_points_need_cuda_or_cpu_argument(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
@@ -137,3 +147,89 @@ def test_pairing_copy_matches_original():
     p = G1.to_affine(G1.scalar_mul(G1.from_affine(G1.gen), 5))
     q = G2.to_affine(G2.scalar_mul(G2.from_affine(G2.gen), 7))
     assert t_mp([p, G1.gen], [G2.gen, q]) == j_mp([p, G1.gen], [G2.gen, q])
+
+
+def test_io_copies_match_originals(tmp_path, monkeypatch):
+    """The copied I/O functions give the originals' values and write their
+    bytes: hex parsing, the library dir (setup params, subcircuit infos,
+    binary R1CS), the synthesizer's three JSONs, the Solidity proof and
+    preprocess files, proof4_test.json, sigma_verify.json, the rkyv
+    oracle's payload, and library resolution."""
+    from tokamak_zk_evm_tpu.io import artifacts as JA
+    from tokamak_zk_evm_tpu.io import rkyv_oracle as JO
+    from tokamak_zk_evm_tpu.io import subcircuit_library as JL
+    from tokamak_zk_evm_tpu.testing.fixtures import build_fixture as j_build_fixture
+    from tokamak_zk_evm_tpu_torch.io import artifacts as TA
+    from tokamak_zk_evm_tpu_torch.io import rkyv_crs as TR
+    from tokamak_zk_evm_tpu_torch.io import rkyv_oracle as TO
+    from tokamak_zk_evm_tpu_torch.io import subcircuit_library as TL
+    from tokamak_zk_evm_tpu_torch.models.protocol import PreprocessResult, Proof4Test
+    from tokamak_zk_evm_tpu_torch.models.setup import Tau, generate_sigma
+    from tokamak_zk_evm_tpu_torch.testing.fixtures import build_fixture
+
+    for h in ("0xf", "f", "0x0", "0x10", "", "0X1234abcd", "abc"):
+        assert TA.parse_hex(h) == JA.parse_hex(h)
+    fx, jfx = build_fixture(), j_build_fixture()
+
+    def tree(d):
+        return {os.path.relpath(os.path.join(r, f), d): open(os.path.join(r, f), "rb").read()
+                for r, _, fs in os.walk(d) for f in fs}
+
+    def write(mod, fixture, d):
+        os.makedirs(d)
+        mod.save_library(os.path.join(d, "lib"), fixture.params, fixture.infos, fixture.library)
+        mod.save_placement_variables(fixture.placements, os.path.join(d, "pv.json"))
+        mod.save_instance(fixture.instance, os.path.join(d, "instance.json"))
+        mod.save_permutation(fixture.permutation, os.path.join(d, "perm.json"))
+        return tree(d)
+
+    assert write(TA, fx, str(tmp_path / "t")) == write(JA, jfx, str(tmp_path / "j"))
+    lib = str(tmp_path / "j" / "lib")
+    tp, ti, tl = TA.load_library(lib)
+    jp, ji, jl = JA.load_library(lib)
+    assert (vars(tp), [vars(i) for i in ti]) == (vars(jp), [vars(i) for i in ji])
+    assert [(r.A_cols, r.B_cols, r.C_cols) for r in tl] == \
+        [(r.A_cols, r.B_cols, r.C_cols) for r in jl]
+    r1cs = os.path.join(lib, "r1cs", "subcircuit0.r1cs")
+    assert TA.parse_r1cs(r1cs)[1] == JA.parse_r1cs(r1cs)[1]
+    for name, loader in (("pv.json", "load_placement_variables"), ("instance.json", "load_instance"),
+                         ("perm.json", "load_permutation")):
+        p = str(tmp_path / "j" / name)
+        got, want = getattr(TA, loader)(p), getattr(JA, loader)(p)
+        assert repr(got) == repr(want)
+
+    sigma = generate_sigma(fx.params, Tau.fixed(), fx.library, fx.infos, device="cpu")
+    pts = [sigma.G, sigma.sigma_1.x, sigma.sigma_1.y, None]
+    pre = PreprocessResult(s0=pts[0], s1=pts[1], O_pub_fix=pts[3])
+    assert TA.preprocess_to_solidity(pre) == JA.preprocess_to_solidity(pre)
+    d = TA.preprocess_to_solidity(pre)
+    assert repr(TA.preprocess_from_solidity(d)) == repr(JA.preprocess_from_solidity(d))
+    p4t = Proof4Test(**{n: pts[i % 4] for i, n in enumerate(TA._P4T_FIELDS)})
+    for mod, tag in ((TA, "t"), (JA, "j")):
+        mod.save_proof4test(p4t, str(tmp_path / f"{tag}_p4t.json"))
+        mod.save_sigma_verify(sigma, str(tmp_path / f"{tag}_sv.json"))
+    for f in ("p4t", "sv"):
+        assert (tmp_path / f"t_{f}.json").read_bytes() == (tmp_path / f"j_{f}.json").read_bytes()
+    assert repr(TA.load_proof4test(str(tmp_path / "j_p4t.json"))) == \
+        repr(JA.load_proof4test(str(tmp_path / "j_p4t.json")))
+    tsv = TA.load_sigma_verify(str(tmp_path / "j_sv.json"))
+    jsv = JA.load_sigma_verify(str(tmp_path / "j_sv.json"))
+    assert (tsv.G, tsv.H, tsv.lagrange_KL, tsv.sigma_1.x, tsv.sigma_1.y, vars(tsv.sigma_2)) == \
+        (jsv.G, jsv.H, jsv.lagrange_KL, jsv.sigma_1.x, jsv.sigma_1.y, vars(jsv.sigma_2))
+
+    path = str(tmp_path / "combined_sigma.rkyv")
+    TR.write_combined_sigma(sigma, fx.params, path)
+    buf = open(path, "rb").read()
+    assert TO.decode_combined_sigma(buf) == JO.decode_combined_sigma(buf)
+    assert TO.parse_payload(TO.decode_combined_sigma(buf)) == \
+        JO.parse_payload(JO.decode_combined_sigma(buf))
+    assert (TO.G1, TO.G2, TO.SIGMA1_SIZE, TO.SIGMA_SIZE) == (JO.G1, JO.G2, JO.SIGMA1_SIZE,
+                                                            JO.SIGMA_SIZE)
+
+    assert TL.resolve_library_path(lib) == JL.resolve_library_path(lib)
+    monkeypatch.setenv("TZK_SUBCIRCUIT_LIBRARY", lib)
+    assert TL.resolve_library_path(None) == JL.resolve_library_path(None)
+    monkeypatch.delenv("TZK_SUBCIRCUIT_LIBRARY")
+    assert TL.embedded_library_path() is None and JL.embedded_library_path() is None
+    with pytest.raises(FileNotFoundError):
+        TL.resolve_library_path(str(tmp_path))

@@ -6,8 +6,9 @@ grids whose transforms cross the kernel's one-pass tile ((4096, 2),
 forward and inverse; the inverse undoes the forward.  `ntt_axis` (`fr_ntt`
 with `ops.ntt`'s tables, a coset as one Fr product) along either axis
 against the JAX transform of the same axis.  Inputs are numpy limb arrays
-from a seed.  Tolerance: exact.  `fr_ntt` refuses a transform longer than
-its kernel's two passes hold, on either route.
+from a seed.  Tolerance: exact.  `fr_ntt` takes transforms of any length:
+the four-step split it runs on the card past the kernel's two passes
+(`ntt_split`) is held to the plain version and to JAX at small n.
 """
 
 import numpy as np
@@ -91,13 +92,37 @@ def test_fr_ntt_axis_matches_jax(axis, inverse, coset):
 
 
 @pytest.mark.parametrize("axis", [1, 2])
-def test_fr_ntt_refuses_transforms_past_two_passes(axis):
-    """n = 2^23 along either axis: `fr_ntt` names its ceiling, 2^22 points
-    (an expanded view, so no grid is allocated)."""
-    shape = [16, 1, 1]
-    shape[axis] = 1 << 23
-    grid = torch.zeros((16, 1, 1), dtype=torch.int32).expand(shape)
-    pows = torch.zeros((16, 1), dtype=torch.int32).expand(16, 1 << 23)
-    with pytest.raises(ValueError, match=r"NTT_MAX_N = 2\^22"):
-        TK.fr_ntt(grid, pows, axis=axis)
+def test_fr_ntt_refuses_transforms_past_two_passes(axis, monkeypatch):
+    """The ceiling is gone: with `NTT_MAX_N` lowered to 16, a 64-point
+    transform along either axis is no longer refused; the CPU route takes
+    the plain version at any length (on the card, longer transforms run as
+    `ntt_split`), and it equals the JAX transform."""
     assert TK.NTT_MAX_N == 1 << 22
+    monkeypatch.setattr(TK, "NTT_MAX_N", 16)
+    g = rand_grid((64, 3) if axis == 1 else (3, 64), 20 + axis)
+    pows, scale = TN._tables.__wrapped__(64, True, torch.device("cpu"))
+    got = TK.fr_ntt(torch.as_tensor(g.astype(np.int32)), pows, scale, axis)
+    moved = np.moveaxis(g, axis, -1)
+    want = np.moveaxis(np.asarray(JN.ntt_batched(jnp.asarray(moved), inverse=True)), -1, axis)
+    assert np.array_equal(got.numpy().astype(np.uint32), want.astype(np.uint32))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("axis", [1, 2])
+@pytest.mark.parametrize("shape,n1", [((1024, 1), 32), ((1024, 3), 32), ((256, 2), 4),
+                                      ((4, 2), 2)])
+def test_ntt_split_matches_plain_and_jax(shape, n1, axis, inverse):
+    """The four-step split `fr_ntt` takes past `NTT_MAX_N` on the card,
+    called directly at small n (2^10 as 2^5 x 2^5, 2^8 as 2^6 x 2^2, 2^2 as
+    2 x 2) along either axis: == `plain_ntt` == the JAX transform, exact."""
+    if axis == 2:
+        shape = shape[::-1]
+    g = rand_grid(shape, 30 + shape[0] + axis)
+    n = g.shape[axis]
+    pows, scale = TN._tables.__wrapped__(n, inverse, torch.device("cpu"))
+    data = torch.as_tensor(g.astype(np.int32))
+    got = TK.ntt_split(data, pows, scale, axis, n1)
+    assert torch.equal(got, TK.plain_ntt(data, pows, scale, axis))
+    moved = np.moveaxis(g, axis, -1)
+    want = np.moveaxis(np.asarray(JN.ntt_batched(jnp.asarray(moved), inverse=inverse)), -1, axis)
+    assert np.array_equal(got.numpy().astype(np.uint32), want.astype(np.uint32))

@@ -89,6 +89,11 @@ def _fresh(name: str) -> bool:
     return os.path.getmtime(so) >= max(newest, os.path.getmtime(src))
 
 
+def built() -> dict[str, bool]:
+    """{library: whether build/ holds it, newer than every source}."""
+    return {name: _fresh(name) for name in SIGNATURES}
+
+
 @contextlib.contextmanager
 def build_lock():
     """Hold an exclusive lock on `build/.lock` (across processes)."""

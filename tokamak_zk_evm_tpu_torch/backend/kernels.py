@@ -22,7 +22,9 @@ K4 on `fq_chain.cuh`'s carry chains):
                                          up / top / down)
   K3 csrc/ntt.cu        NTT              NTT along either grid axis, stages
                                          fused in shared memory, one or two
-                                         passes, the scale folded in
+                                         passes, the scale folded in; past
+                                         2^22 points a four-step split over
+                                         two K3 calls and a K1 product
   K4 csrc/g1.cu         G1_FIXED_BASE    k_i * G from a 12-bit window table
      csrc/msm.cu        MSM_BUCKET_SUM   bounded-chunk bucket sums
                         MSM_WINDOW       sum_b b * B_b, one level of segments
@@ -345,7 +347,7 @@ def _bitrev(n: int, device) -> torch.Tensor:
     return r
 
 
-NTT_MAX_N = 1 << 22  # the kernel's two passes of at most 2048 points
+NTT_MAX_N = 1 << 22  # the most the kernel's two passes hold; longer: ntt_split
 
 
 def plain_ntt(data, pows, scale=None, axis=2):
@@ -380,20 +382,17 @@ def plain_ntt(data, pows, scale=None, axis=2):
 
 def fr_ntt(data, pows, scale=None, axis=2, inplace=False):
     """NTT of the grid `data` [16, X, Y] (natural order) along `axis` (1 or
-    2), of length n = data.shape[axis] <= NTT_MAX_N:
+    2), of length n = data.shape[axis]:
         out[k] = scale * sum_j data[j] * w^(jk)
     with twiddles pows [16, n] = w^j and `scale` None or [16, 1] (an
     inverse transform's n^-1).  Natural order out, into a new tensor, or
-    over `data` with `inplace`.  Both routes refuse n > NTT_MAX_N, which
-    the kernel's two passes cannot hold."""
+    over `data` with `inplace`.  On the card a transform longer than
+    NTT_MAX_N, the most the kernel's two passes hold, runs as `ntt_split`."""
     if data.dim() != 3 or data.shape[0] != FR_L or axis not in (1, 2):
         raise ValueError("fr_ntt: want data [16, X, Y] and axis 1 or 2")
     n = data.shape[axis]
     if n & (n - 1) or n < 2:
         raise ValueError(f"fr_ntt: n = {n} is not a power of two >= 2")
-    if n > NTT_MAX_N:
-        raise ValueError(f"fr_ntt: n = {n} is longer than NTT_MAX_N = 2^22, the most "
-                         "the kernel's two passes hold")
     if pows.shape != (FR_L, n) or (scale is not None and scale.shape != (FR_L, 1)):
         raise ValueError("fr_ntt: want pows [16, n] and scale None or [16, 1]")
     tensors = [t for t in (data, pows, scale) if t is not None]
@@ -401,6 +400,9 @@ def fr_ntt(data, pows, scale=None, axis=2, inplace=False):
         raise ValueError("fr_ntt: inputs must be contiguous int32")
     if not on_card(*tensors):
         out = plain_ntt(data, pows, scale, axis)
+        return data.copy_(out) if inplace else out
+    if n > NTT_MAX_N:
+        out = ntt_split(data, pows, scale, axis, 1 << (n.bit_length() // 2))
         return data.copy_(out) if inplace else out
     X, Y = data.shape[1:]
     A, C = (X, 1) if axis == 2 else (1, Y)
@@ -413,6 +415,31 @@ def fr_ntt(data, pows, scale=None, axis=2, inplace=False):
                A, n, C, _stream(data))
     NTT.launches += 1
     return out
+
+
+def ntt_split(data, pows, scale=None, axis=2, n1=2):
+    """`fr_ntt`'s transform as a four-step split n = n2 * n1.  With
+    j = j2 n1 + j1 and k = k1 n2 + k2:
+        out[k] = sum_j1 w^(n2 j1 k1) w^(j1 k2) sum_j2 data[j] w^(n1 j2 k2),
+    so: transforms of n2 points along j2 (`fr_ntt`), a K1 product by the
+    twiddles w^(j1 k2), a transpose that brings j1 first, and transforms of
+    n1 points along it (`fr_ntt`, with the scale).  Rows (axis 2) are
+    transposed into columns and back.  A new tensor out."""
+    n = data.shape[axis]
+    if n1 < 2 or n % n1 or n1 == n:
+        raise ValueError(f"ntt_split: n1 = {n1} does not split n = {n}")
+    if axis == 2:
+        cols = data.transpose(1, 2).contiguous()
+        return ntt_split(cols, pows, scale, 1, n1).transpose(1, 2).contiguous()
+    n2, Q = n // n1, data.shape[2]
+    y = fr_ntt(data.reshape(FR_L, n2, n1 * Q), pows[:, ::n1].contiguous(), axis=1)
+    k2 = torch.arange(n2, device=data.device)
+    j1 = torch.arange(n1, device=data.device)
+    twiddles = pows[:, (k2[:, None] * j1[None, :]).reshape(-1)]  # [16, n2 n1]
+    y = fr_mul(y.reshape(FR_L, -1), twiddles, rep=Q)
+    z = y.reshape(FR_L, n2, n1, Q).transpose(1, 2).contiguous().reshape(FR_L, n1, n2 * Q)
+    out = fr_ntt(z, pows[:, ::n2].contiguous(), scale, axis=1, inplace=True)
+    return out.reshape(data.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -540,22 +567,25 @@ def _expand_rep(q, Ba, rep):
 
 
 def g1_add(p, q, rep=1):
-    """Complete jacobian add of [24, B] point triples (b broadcast by rep).
-
-    A chain of K1 launches, kept for the op name: the main path never calls
-    it (K4's kernels add points with g1.cu's own device formulas), so on the
-    card it is neither run nor checked by `chip_smoke.py`."""
+    """Complete jacobian add of [24, B] point triples (b broadcast by rep):
+    a chain of K1 launches (`ops.curve.jac_add`, `jac_sum_tree`).  K4's
+    kernels add points with their own device formulas."""
     q = _expand_rep(q, p[0].shape[1], rep)
     return jac_add(_OPS_FQ, p, q)
 
 
-def g1_dbl(p):
-    """Jacobian doubling of [24, B] point triples; off the main path, like
-    `g1_add`."""
-    X, Y, Z = jac_dbl(_OPS_FQ, p)
-    ix, iy, iz = _inf(_OPS_FQ, X.shape[1], X.device)
+def _dbl_complete(ar, p):
+    """`jac_dbl` with infinity in, infinity (1, 1, 0) out."""
+    X, Y, Z = jac_dbl(ar, p)
+    ix, iy, iz = _inf(ar, X.shape[1], X.device)
     inf = _is_zero(p[2])
     return _sel(inf, ix, X), _sel(inf, iy, Y), _sel(inf, iz, Z)
+
+
+def g1_dbl(p):
+    """Jacobian doubling of [24, B] point triples, a chain of K1 launches
+    (`ops.curve.jac_double`)."""
+    return _dbl_complete(_OPS_FQ, p)
 
 
 def g1_to_affine(p):
@@ -567,6 +597,35 @@ def g1_to_affine(p):
     x = fq_mul(X, zi2)
     y = fq_mul(Y, fq_mul(zi2, zi))
     return x, y, _is_zero(Z).to(torch.int32)
+
+
+def _int64(p):
+    return tuple(c.to(torch.int64) for c in p)
+
+
+def _int32(p):
+    return tuple(c.to(torch.int32) for c in p)
+
+
+def plain_g1_add(p, q, rep=1):
+    """Plain version of `g1_add`: the same formulas on int64 limbs."""
+    q = _expand_rep(q, p[0].shape[1], rep)
+    return _int32(jac_add(_PLAIN, _int64(p), _int64(q)))
+
+
+def plain_g1_dbl(p):
+    """Plain version of `g1_dbl`."""
+    return _int32(_dbl_complete(_PLAIN, _int64(p)))
+
+
+def plain_g1_to_affine(p):
+    """Plain version of `g1_to_affine`."""
+    X, Y, Z = p
+    zi = plain_batch_inv(1, Z).to(torch.int64)
+    zi2 = limbs.mul(_FQ, zi, zi)
+    x = limbs.mul(_FQ, X.to(torch.int64), zi2)
+    y = limbs.mul(_FQ, Y.to(torch.int64), limbs.mul(_FQ, zi2, zi))
+    return x.to(torch.int32), y.to(torch.int32), _is_zero(Z).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -109,6 +109,12 @@ def tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, dtype=np.int32), device=device)
 
 
+def fr_one(shape, device) -> torch.Tensor:
+    """[16, *shape] Montgomery ones on `device`."""
+    one = tensor(pack_fr([1]).reshape((FR_L,) + (1,) * len(shape)), device)
+    return one.expand((FR_L,) + tuple(shape)).contiguous()
+
+
 def fr_zero(shape, device) -> torch.Tensor:
     return torch.zeros((FR_L,) + tuple(shape), dtype=torch.int32, device=device)
 

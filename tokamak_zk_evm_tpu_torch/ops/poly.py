@@ -72,12 +72,20 @@ class BiPoly:
         return BiPoly(F.tensor(arr, device))
 
     @staticmethod
+    def from_coeffs(coeffs) -> "BiPoly":
+        return BiPoly(coeffs)
+
+    @staticmethod
     def from_rou_evals(evals, coset_x: int | None = None, coset_y: int | None = None):
         """evals: [16, x_size, y_size] device grid of evaluations."""
         return BiPoly(ntt_mod.bintt(evals, inverse=True, coset_x=coset_x, coset_y=coset_y))
 
     def to_rou_evals(self, coset_x: int | None = None, coset_y: int | None = None):
         return ntt_mod.bintt(self.coeffs, coset_x=coset_x, coset_y=coset_y)
+
+    def to_ints(self):
+        """Host grid of Python ints (numpy object array [x, y])."""
+        return F.unpack_fr(self.coeffs)
 
     def clone(self):
         return BiPoly(self.coeffs, self.x_degree, self.y_degree)

@@ -28,6 +28,12 @@ from ..models.protocol import (
 )
 from .fixtures import Fixture
 
+# SHA-256 of `canonical_proof_bytes` of the JAX package's proof of
+# `build_synthetic()` at its defaults, under `Tau.fixed()` and `Mixer.zero()`
+# (its native CPU backend, ~7 min); `tests/test_torch_fullshape_golden.py`
+# recomputes it, and `chip_smoke.py` holds the port's proof on the card to it.
+FULLSHAPE_PROOF_SHA256 = "8de4bf3d9aa94bc1f7f6dce12c285999810eec0014f88959c70803cf44a275e7"
+
 
 def build_synthetic(
     n: int = 4096,
