@@ -12,8 +12,9 @@ Phases, in order (any mismatch or exception exits non-zero):
      and stack frame, and require that the MSM build reports exactly its
      three stage kernels (the bucket sum's two passes and the window
      reduce), the NTT build its pass kernel, the G1 build its fixed-base
-     kernel and the inversion build its six (three a field), each with no
-     stack frame and no spills;
+     kernel, the G1 ops build B13's three (add, doubling, to-affine) and the
+     inversion build its six (three a field), each with no stack frame and
+     no spills;
   3. each kernel against its plain PyTorch version on the card, exact:
      K1 on Fr and Fq batches holding 0, 1 and p-1; K2's inversion at 1 and
      4096 elements and its batch inversion at 1, 2, its one-launch width
@@ -24,9 +25,11 @@ Phases, in order (any mismatch or exception exits non-zero):
      along both axes of a 16384 x 512 grid, on transforms past 16384 points
      (rows of 2^20, columns of 2^18), on a 2^23-point row and column (past
      the kernel's two passes: `fr_ntt`'s four-step split, two K3 calls and a
-     K1 twiddle product), and a coset round trip (K1 and K3); g1_add,
-     g1_dbl and g1_to_affine (K1 / K2 chains) with every case planted
-     (P+Q, P+P, P+(-P), inf+Q, P+inf, inf+inf, a broadcast operand); K4
+     K1 twiddle product), and a coset round trip (K1 and K3); B13's
+     g1_add, g1_dbl and g1_to_affine (one launch each, the last after K2)
+     with every case planted (P+Q, P+P, P+(-P), inf+Q, P+inf, inf+inf, a
+     broadcast operand), on doubled points and on raw ones whose
+     infinities are (0, 0, 0); K4
      fixed-base at 2^12 with planted scalars (0, 1, r-1, all-ones digits, a
      nonzero top window alone, repeats) on the 12-bit table built on the
      card, against the plain version on the 8-bit table and host scalar
@@ -62,6 +65,17 @@ Phases, in order (any mismatch or exception exits non-zero):
      pinned digest, verify must print true and, for a proof with one limb
      changed, false; every kernel of the path but K5 must launch; `python -m
      tokamak_zk_evm_tpu_torch doctor` must pass;
+  5e. the MPC ceremony at the synthetic full shape, in process with seeded
+     rngs: phase-1 init and two contributions, each verified, the
+     accumulator's JSON written and read back (checked); phase-2 prepare
+     with a beacon y and two contributions, each verified; the result must
+     equal `generate_sigma` for the combined secrets on every family point
+     (9,390,208) and every host point; `phase2_verify` must reject one
+     point changed in delta_inv_li_o_prv and two xy_powers rows swapped;
+     then the CLI's `mpc` steps at the same shape through files (one
+     contributor a phase, secure rng), preprocess, prove --deterministic
+     and verify (true) on the ceremony's CRS.  Counters set to 0 before,
+     read after: B13's kernels, K1, K2 and K4's MSM stages must launch;
   6. each kernel at the main path's shapes: held against its plain version
      there (every output of K1, K2, K3 on both axes, K5, the fixed-base
      kernel at 2^22 (against the plain version on the 8-bit table) and every
@@ -74,7 +88,8 @@ Phases, in order (any mismatch or exception exits non-zero):
      oracle too, and the window reduce at 8/2 buckets a thread against the
      default; K2's inversion at 4096 and 1 elements, its batch inversion at
      2^20 (Fr), 2^22, 2^10 and 1 (Fq), and one `g1_aff_add_batch` at 2^22
-     lanes, each beside its bound.
+     lanes, each beside its bound; B13's add, doubling and to-affine at
+     2^22 lanes.
 The last three lines are the nvidia-smi line, the kernels JSON and the device
 JSON. The port imports nothing of JAX; neither does this script.
 """
@@ -110,6 +125,7 @@ PTXAS_CLEAN = {
     "msm": ("bucket_sum_kernel_affine", "bucket_sum_kernel_jacobian", "window_reduce_kernel"),
     "ntt": ("ntt_pass_kernel",),
     "g1": ("fixed_base_kernel",),
+    "g1_ops": ("g1_add_kernel", "g1_dbl_kernel", "g1_affine_kernel"),
     "field_inv": tuple(f"{k}_{f}" for k in ("inv_kernel", "binv_up", "binv_down")
                        for f in ("fr", "fq")),
 }
@@ -346,41 +362,46 @@ def check_ntt_past_ceiling(torch, K, dev, n=1 << 23):
 
 
 def check_curve_ops(torch, np, K, dev, n=6 * 4096):
-    """g1_add, g1_dbl and g1_to_affine (chains of K1 and K2 launches) on the
-    card against their plain versions, exact, on jacobian points with Z != 1
-    (doubled affine points): lane i takes case i % 6 of P+Q, P+P, P+(-P),
-    inf+Q, P+inf, inf+inf; the add also with its second operand broadcast
-    (rep 4); and a sample of lanes against host curve adds."""
+    """B13's g1_add, g1_dbl and g1_to_affine on the card against their plain
+    versions, exact, one launch each: lane i takes case i % 6 of P+Q, P+P,
+    P+(-P), inf+Q, P+inf, inf+inf, on jacobian points with Z != 1 (doubled
+    affine points) and on the raw affine ones (Z = 1, infinity (0, 0, 0));
+    the add also with its second operand broadcast (rep 4); and a sample
+    of lanes against host curve adds."""
     from tokamak_zk_evm_tpu_torch.host.curve import G1
 
-    log(f"[3] g1_add / g1_dbl / g1_to_affine at {n} lanes, every case planted: "
+    log(f"[3] B13 g1_add / g1_dbl / g1_to_affine at {n} lanes, every case planted: "
         f"kernels == plain, exact")
     x1, y1, x2, y2 = planted_affine(torch, np, K, dev, np.random.default_rng(6), n, "all")
 
-    def jac(x, y):
+    def raw(x, y):
         inf = (x == 0).all(0) & (y == 0).all(0)
         one = K._FQ.one(dev).expand(K.FQ_L, n).to(torch.int32)
-        z = torch.where(inf[None, :], torch.zeros_like(one), one)
-        return K.plain_g1_dbl((x, y, z.contiguous()))
+        return x, y, torch.where(inf[None, :], torch.zeros_like(one), one).contiguous()
 
-    P, Q = jac(x1, y1), jac(x2, y2)
     same = lambda a, b: all(torch.equal(u, v) for u, v in zip(a, b))  # noqa: E731
-    S = K.g1_add(P, Q)
-    expect(same(S, K.plain_g1_add(P, Q)), "g1_add kernels == plain")
-    Qr = tuple(c[:, : n // 4].contiguous() for c in Q)
-    expect(same(K.g1_add(P, Qr, rep=4), K.plain_g1_add(P, Qr, rep=4)),
-           "g1_add, second operand broadcast (rep 4) == plain")
-    expect(same(K.g1_dbl(P), K.plain_g1_dbl(P)), "g1_dbl kernels == plain")
-    A = K.g1_to_affine(S)
-    expect(same(A, K.plain_g1_to_affine(S)), "g1_to_affine kernels == plain")
-    expect(bool((A[2].view(-1, 6)[:, 2] == 1).all()) and bool((A[2].view(-1, 6)[:, 5] == 1).all()),
-           "P+(-P) and inf+inf lanes are infinity")
-    m = 300
+    for form, (P, Q) in (("doubled", (K.plain_g1_dbl(raw(x1, y1)), K.plain_g1_dbl(raw(x2, y2)))),
+                         ("raw", (raw(x1, y1), raw(x2, y2)))):
+        before = {k.name: k.launches for k in (K.G1_ADD, K.G1_DBL, K.G1_TO_AFFINE)}
+        S = K.g1_add(P, Q)
+        D = K.g1_dbl(P)
+        A = K.g1_to_affine(S)
+        one_each = all(k.launches - before[k.name] == 1 for k in (K.G1_ADD, K.G1_DBL, K.G1_TO_AFFINE))
+        expect(same(S, K.plain_g1_add(P, Q)) and one_each,
+               f"g1_add kernel == plain ({form} inputs), one launch each")
+        Qr = tuple(c[:, : n // 4].contiguous() for c in Q)
+        expect(same(K.g1_add(P, Qr, rep=4), K.plain_g1_add(P, Qr, rep=4)),
+               f"g1_add, second operand broadcast (rep 4) == plain ({form} inputs)")
+        expect(same(D, K.plain_g1_dbl(P)), f"g1_dbl kernel == plain ({form} inputs)")
+        expect(same(A, K.plain_g1_to_affine(S)), f"g1_to_affine kernels == plain ({form} inputs)")
+        expect(bool((A[2].view(-1, 6)[:, 2] == 1).all()) and bool((A[2].view(-1, 6)[:, 5] == 1).all()),
+               f"P+(-P) and inf+inf lanes are infinity ({form} inputs)")
+    m = min(n, 300)
     idx = list(range(m))
     want = [G1.to_affine(G1.add(G1.from_affine(p), G1.from_affine(q)))
             for p, q in zip(affine_host(P, idx), affine_host(Q, idx))]
     expect(affine_host(S, idx) == want, f"g1_add == host curve adds on {m} lanes")
-    del x1, y1, x2, y2, P, Q, S, A
+    del x1, y1, x2, y2, P, Q, S, D, A
     torch.cuda.empty_cache()
 
 
@@ -814,6 +835,189 @@ def drive_files(torch, np, K, dev, fx, sigma):
     return counts, t
 
 
+class SeqRng:
+    """Seeded bytes: the ceremony's rng, so that its secrets can be replayed."""
+
+    def __init__(self, np, seed):
+        self._rng = np.random.default_rng(seed)
+
+    def bytes(self, n):
+        return self._rng.bytes(n)
+
+
+def family_points(sigma) -> int:
+    return sum(int(getattr(sigma.sigma_1, f)[2].numel()) for f in
+               ("xy_powers", "gamma_inv_o_inst", "eta_inv_li_o_inter_alpha4_kj",
+                "delta_inv_li_o_prv"))
+
+
+def drive_ceremony(torch, np, dev, fx):
+    """Phase 5e, in process: the ceremony of `tests/test_mpc_setup.py`'s end
+    gate at the synthetic full shape on the card (seeded rngs: the secrets
+    are replayed from a second copy of each), every step verified; the
+    result against `generate_sigma` for the combined secrets; two tampered
+    Sigmas rejected.  -> seconds by stage."""
+    import shutil
+    import tempfile
+
+    from tokamak_zk_evm_tpu_torch.fields import R_MOD
+    from tokamak_zk_evm_tpu_torch.host.curve import G1
+    from tokamak_zk_evm_tpu_torch.models import mpc_setup as M
+    from tokamak_zk_evm_tpu_torch.models.setup import Tau, generate_sigma
+    from tokamak_zk_evm_tpu_torch.ops import field as F
+
+    p, t = fx.params, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t[name] = time.perf_counter() - t0
+        return out
+
+    acc = M.Phase1Accumulator.initial(p)
+    rng, shadow = SeqRng(np, 7), SeqRng(np, 7)
+    alpha = x = 1
+    for i in (1, 2):
+        new, proof = timed(f"phase1_compute_{i}", lambda: acc.compute(rng, dev))
+        ok = timed(f"phase1_verify_{i}",
+                   lambda: acc.verify(new, proof, np.random.default_rng(100 + i), dev))
+        expect(ok is True, f"phase-1 contribution {i} ({len(new.x_g1)} + 4 + 4 x "
+               f"{new.ax_len} G1 powers) verifies")
+        a_u, x_u = M._rand_fr(shadow), M._rand_fr(shadow)
+        M._rand_fr(shadow), M._rand_fr(shadow)  # the two Schnorr nonces
+        alpha, x = alpha * a_u % R_MOD, x * x_u % R_MOD
+        acc = new
+    cache = os.path.join(ROOT, ".cache")
+    os.makedirs(cache, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_5e_", dir=cache)
+    try:
+        path = os.path.join(tmp, "acc.json")
+        timed("phase1_json_save", lambda: acc.save(path))
+        loaded = timed("phase1_json_load_checked", lambda: M.Phase1Accumulator.load(path, dev))
+        expect(loaded.hash() == acc.hash(), f"phase-1 JSON ({os.path.getsize(path)} B) read "
+               f"back through the checked load keeps the hash chain")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    y = 0x1234567
+    sigma = timed("phase2_prepare", lambda: M.phase2_prepare(acc, y, p, fx.library, fx.infos,
+                                                             dev))
+    rng, shadow = SeqRng(np, 9), SeqRng(np, 9)
+    gamma = delta = eta = 1
+    for i in (1, 2):
+        prev = sigma
+        sigma, proof = timed(f"phase2_contribute_{i}", lambda: M.phase2_contribute(prev, rng))
+        ok = timed(f"phase2_verify_{i}",
+                   lambda: M.phase2_verify(prev, sigma, proof, np.random.default_rng(200 + i)))
+        expect(ok is True, f"phase-2 contribution {i} verifies")
+        g_u, d_u, e_u = (M._rand_fr(shadow) for _ in range(3))
+        for _ in range(3):  # the Schnorr nonces
+            M._rand_fr(shadow)
+        gamma, delta, eta = gamma * g_u % R_MOD, delta * d_u % R_MOD, eta * e_u % R_MOD
+
+    tau = Tau(x=x, y=y, alpha=alpha, gamma=gamma, delta=delta, eta=eta)
+    want = timed("generate_sigma", lambda: generate_sigma(p, tau, fx.library, fx.infos,
+                                                          device=dev))
+    expect(sigma_equal(torch, sigma, want),
+           f"ceremony Sigma == generate_sigma(Tau(x, y, alpha, gamma, delta, eta)) on all "
+           f"{family_points(sigma)} family points and every host point")
+    del want
+
+    import dataclasses
+
+    prv = [c.clone() for c in sigma.sigma_1.delta_inv_li_o_prv]
+    k = int(torch.nonzero(prv[2] == 0)[0])
+    gen = F.tensor(F.pack_fq([G1.gen[0], G1.gen[1]]), dev)
+    prv[0][:, k], prv[1][:, k] = gen[:, 0], gen[:, 1]
+    bad = dataclasses.replace(sigma, sigma_1=dataclasses.replace(
+        sigma.sigma_1, delta_inv_li_o_prv=tuple(prv)))
+    ok = timed("phase2_verify_tampered_prv", lambda: M.phase2_verify(
+        prev, bad, proof, np.random.default_rng(300)))
+    expect(ok is False, f"phase2_verify rejects delta_inv_li_o_prv with point {k} set to G")
+    xy = [c.clone() for c in sigma.sigma_1.xy_powers]
+    for c in xy:
+        c[..., [0, 1]] = c[..., [1, 0]]
+    bad = dataclasses.replace(sigma, sigma_1=dataclasses.replace(
+        sigma.sigma_1, xy_powers=tuple(xy)))
+    ok = timed("phase2_verify_tampered_xy", lambda: M.phase2_verify(
+        prev, bad, proof, np.random.default_rng(301)))
+    expect(ok is False, "phase2_verify rejects xy_powers with rows 0 and 1 swapped")
+    del prv, xy, bad, sigma, prev
+    torch.cuda.empty_cache()
+    return t
+
+
+def drive_ceremony_files(torch, dev, fx):
+    """Phase 5e through files: the port's CLI in this process, `mpc`
+    phase1-init, phase1-contribute, phase1-verify (true), phase2-prepare,
+    phase2-contribute (one contributor a phase, secure rng), then
+    preprocess, prove --deterministic and verify (true) on the ceremony's
+    CRS, in a scratch directory under the checkout's `.cache/`, deleted at
+    the end.  -> seconds by stage."""
+    import io
+    import shutil
+    import tempfile
+
+    from tokamak_zk_evm_tpu_torch import cli
+    from tokamak_zk_evm_tpu_torch.io import artifacts as art
+
+    def run(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--device", str(dev)] + argv)
+        lines = out.getvalue().strip().splitlines()
+        return rc, lines[-1] if lines else ""
+
+    cache = os.path.join(ROOT, ".cache")
+    os.makedirs(cache, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_5e_", dir=cache)
+    t = {}
+    try:
+        lib, synth = os.path.join(tmp, "library"), os.path.join(tmp, "synthesizer")
+        f = lambda name: os.path.join(tmp, name)  # noqa: E731
+        os.makedirs(synth)
+        art.save_library(lib, fx.params, fx.infos, fx.library)
+        art.save_placement_variables(fx.placements, os.path.join(synth, "placementVariables.json"))
+        art.save_instance(fx.instance, os.path.join(synth, "instance.json"))
+        art.save_permutation(fx.permutation, os.path.join(synth, "permutation.json"))
+        stages = (
+            ("mpc phase1-init", ["mpc", "phase1-init", "--library", lib, "--output", f("acc0.json")]),
+            ("mpc phase1-contribute", ["mpc", "phase1-contribute", "--acc", f("acc0.json"),
+                                       "--output", f("acc1.json"), "--proof", f("p1.json")]),
+            ("mpc phase1-verify", ["mpc", "phase1-verify", "--prev", f("acc0.json"), "--cur",
+                                   f("acc1.json"), "--proof", f("p1.json")]),
+            ("mpc phase2-prepare", ["mpc", "phase2-prepare", "--library", lib, "--acc",
+                                    f("acc1.json"), "--y-hex", "1234567", "--output", f("crs0")]),
+            ("mpc phase2-contribute", ["mpc", "phase2-contribute", "--crs", f("crs0"),
+                                       "--output", f("crs1")]),
+            ("preprocess", ["preprocess", "--crs", f("crs1"), "--library", lib,
+                            "--synthesizer", synth, "--output", f("pre")]),
+            ("prove", ["prove", "--crs", f("crs1"), "--library", lib, "--synthesizer", synth,
+                       "--output", f("proof"), "--deterministic"]),
+            ("verify", ["verify", "--crs", f("crs1"), "--library", lib, "--preprocess", f("pre"),
+                        "--proof", f("proof"), "--synthesizer", synth]),
+        )
+        rcs = {}
+        for name, argv in stages:
+            t0 = time.perf_counter()
+            rcs[name] = run(argv)
+            torch.cuda.synchronize()
+            t[name] = time.perf_counter() - t0
+        log(f"  phase-1 JSON: {os.path.getsize(f('acc1.json'))} B; ceremony CRS npy: "
+            f"{sum(os.path.getsize(os.path.join(f('crs1'), n)) for n in os.listdir(f('crs1')))} B")
+        for name in ("mpc phase1-init", "mpc phase1-contribute", "mpc phase2-prepare",
+                     "mpc phase2-contribute", "preprocess", "prove"):
+            expect(rcs[name][0] == 0, f"cli {name} exits 0")
+        expect(rcs["mpc phase1-verify"] == (0, "true"), "cli mpc phase1-verify prints true")
+        expect(rcs["verify"] == (0, "true"),
+               "cli verify prints true for the proof on the ceremony's CRS")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return t
+
+
 def expect_launches(counts, ran, idle, path):
     for name in ran:
         expect(counts[name] > 0, f"kernel {name} launched {counts[name]} times on the {path}")
@@ -912,6 +1116,7 @@ FR_MUL_OPS = 2 * (2 * 8 * 8 + 8)  # 32-bit CIOS multiply-adds, x2 ops each
 FQ_MUL_OPS = 2 * (2 * 12 * 12 + 12)
 MIXED_ADD_MULS = 11
 JAC_ADD_MULS = 16
+DBL_MULS = 7
 
 
 def limbs_err(a, b) -> int:
@@ -1371,6 +1576,28 @@ def measure(torch, np, K, dev, counts, fixed_sizes):
                          bound_ms(6 * 96 * n, ops, IMAD_PER_S)[0], 4)})
     log(f"  g1_aff_add_batch (aff_pre + Fq batch inverse + aff_post) {shape}: {ms:.3f} ms  "
         f"bound {b:.4f} ms ({by})")
+    # B13 at 2^22 lanes (the ceremony's widest multiplications, xy_powers
+    # and delta_inv_li_o_prv, hold 4.2M lanes), on the same P+Q pairs
+    # doubled (Z != 1).  Bounds: each coordinate read and written once; 16
+    # products an add and 7 a doubling (every lane takes the generic
+    # formula), 4 for the affine pass (Z^-1 read beside the point, inf
+    # written).
+    one = K._FQ.one(dev).expand(K.FQ_L, n).to(torch.int32).contiguous()
+    P, Q = K.g1_dbl((x1, y1, one)), K.g1_dbl((x2, y2, one))
+    del dinv, x1, y1, x2, y2, one
+    torch.cuda.empty_cache()
+    row(K.G1_ADD, shape, lambda: K.g1_add(P, Q), lambda: K.plain_g1_add(P, Q),
+        9 * 96 * n, JAC_ADD_MULS * FQ_MUL_OPS * n, reps=5)
+    row(K.G1_DBL, "2^22 lanes", lambda: K.g1_dbl(P), lambda: K.plain_g1_dbl(P),
+        6 * 96 * n, DBL_MULS * FQ_MUL_OPS * n, reps=5)
+    zi = K.fq_batch_inv(P[2])
+    row(K.G1_TO_AFFINE, "2^22 lanes (after K2)", lambda: K.g1_affine_scale(P, zi),
+        lambda: K.plain_g1_affine_scale(P, zi), (6 * 96 + 4) * n, 4 * FQ_MUL_OPS * n, reps=5)
+    ms = cuda_ms(torch, lambda: K.g1_to_affine(P), 3)
+    rows[-1]["with_batch_inv_ms"] = round(ms, 4)
+    log(f"  g1_to_affine (Fq batch inverse + affine kernel) 2^22 lanes: {ms:.3f} ms")
+    del P, Q, zi
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1432,7 +1659,12 @@ def main() -> int:
     with recording(K) as calls:
         sigma, proof, counts = drive(torch, np, K, dev, fx, "pippenger")
     affine = [K.AFF_PRE.name, K.AFF_POST.name]
-    expect_launches(counts, [n for n in counts if n not in affine], affine, "pippenger path")
+    b13 = [K.G1_ADD.name, K.G1_DBL.name, K.G1_TO_AFFINE.name]
+    # the ceremony's: setup and prove add no jacobian points on the card, and
+    # setup's Fq products were its to-affine steps, now B13's affine kernel
+    not_needed = b13[:2] + [K.FQ_EW.name]
+    expect_launches(counts, [n for n in counts if n not in affine + not_needed], affine,
+                    "pippenger path")
     log("  batch inversions by width: " + json.dumps(calls["batch_inv"]))
     log(f"[5c] K3 at each of the {len(calls['ntt'])} call signatures of phase 5 "
         f"(grid, axis, tables): kernel == plain, exact")
@@ -1450,20 +1682,41 @@ def main() -> int:
     log("[5d] the file-contract path: the port's CLI, setup -> preprocess -> prove -> verify "
         f"through files at the synthetic full shape ({gpu_line()})")
     counts_d, _ = drive_files(torch, np, K, dev, fx, sigma)
-    expect_launches(counts_d, [n for n in counts_d if n not in affine], affine,
+    expect_launches(counts_d, [n for n in counts_d if n not in affine + not_needed], affine,
                     "file-contract path (5d)")
     del sigma
     torch.cuda.empty_cache()
 
+    log("[5e] the MPC ceremony at the synthetic full shape: in process (seeded), then the "
+        f"CLI's mpc steps through files ({gpu_line()})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_counts()
+    t_e = drive_ceremony(torch, np, dev, fx)
+    t_e.update(drive_ceremony_files(torch, dev, fx))
+    counts_e = K.counts()
+    peak_e = torch.cuda.max_memory_allocated()
+    log("  seconds: " + json.dumps({k: round(v, 3) for k, v in t_e.items()}))
+    log("  kernels " + json.dumps(counts_e))
+    log(f"  peak device memory {peak_e / 2**30:.3f} GiB")
+    expect_launches(counts_e, b13 + [K.FR_EW.name, K.FQ_EW.name, K.FIELD_INV.name,
+                                     K.BATCH_INV.name, K.MSM_BUCKET_SUM.name, K.MSM_WINDOW.name],
+                    [], "ceremony path (5e)")
+
     log("[6] kernel times (CUDA events) beside plain versions and bounds")
+    counts_5 = dict(counts)
     counts.update({n: counts_b[n] for n in affine})
+    counts.update({n: counts_e[n] for n in b13})  # B13's path is the ceremony
     rows = measure(torch, np, K, dev, counts, sorted(calls["fixed_base"]))
-    rows[-1]["affine_tree_msm_2^22"] = msm_stats
+    next(r for r in rows if r["name"] == K.AFF_POST.name)["affine_tree_msm_2^22"] = msm_stats
     binv_row = next(r for r in rows if r["name"] == K.BATCH_INV.name)
-    for kern in (K.FIELD_INV, K.BATCH_INV):
+    for kern in (K.FIELD_INV, K.BATCH_INV, K.G1_TO_AFFINE):
         next(r for r in rows if r["name"] == kern.name)["launches_5b"] = counts_b[kern.name]
     for r in rows:
         r["launches_5d"] = counts_d[r["name"]]
+        r["launches_5e"] = counts_e[r["name"]]
+        if r["name"] in b13:
+            r["launches_5"] = counts_5[r["name"]]
     binv_row["widths_5"] = calls["batch_inv"]
     binv_row["widths_5b"] = calls_b["batch_inv"]
     kernels_line = json.dumps({"kernels": rows})

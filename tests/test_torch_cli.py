@@ -1,6 +1,7 @@
 """The port's CLI (`python -m tokamak_zk_evm_tpu_torch`) against the JAX CLI.
 
-Mirrors `tests/test_cli.py`'s toy-fixture flows but the MPC one: library
+Mirrors `tests/test_cli.py`'s toy-fixture flows but the MPC one
+(`tests/test_torch_mpc_cli.py` has it): library
 round trip, setup -> preprocess -> prove -> verify through files, a
 tampered proof, doctor, library resolution, the `sigma_verify.json` round
 trip and the proof bundle.  Then the two packages side by side on one staged
@@ -274,10 +275,12 @@ def test_cli_install_provenance_equals_jax(staged, tmp_path):
     assert os.path.isfile(os.path.join(tws, "subcircuit-library", "setupParams.json"))
 
 
-@pytest.mark.parametrize("command", ["synthesize", "mpc"])
+@pytest.mark.parametrize("command", [pytest.param(["synthesize"], id="synthesize"),
+                                     pytest.param(["mpc", "phase2-verify"], id="mpc")])
 def test_commands_still_to_come_are_absent(command):
-    """`synthesize` (frontend) and `mpc` (ceremony) wait for their slices."""
+    """`synthesize` (frontend) waits for its slice; `mpc` has the JAX CLI's
+    five steps and no step the JAX CLI lacks (no `phase2-verify`)."""
     err = io.StringIO()
     with contextlib.redirect_stderr(err), pytest.raises(SystemExit) as e:
-        main(CPU + [command])
+        main(CPU + command)
     assert e.value.code == 2 and "invalid choice" in err.getvalue()

@@ -307,3 +307,125 @@ def test_curve_ops_planted(dev, rep):
         want = [G1.to_affine(G1.add(G1.double(G1.from_affine(p)), G1.double(G1.from_affine(q))))
                 for p, q in zip(a, b)]
         assert _affine_jac(got) == want
+
+
+def test_b13_kernels_one_launch_raw_infinity(dev):
+    """B13's add, doubling and affine kernels: one launch each, and equal to
+    the plain versions on raw `affine_to_jac` inputs, whose infinities are
+    (0, 0, 0) (inf + inf with two representations, P + inf, inf + Q, P + P
+    and P + (-P) at Z = 1), and at 5000 lanes (past one block)."""
+    from tokamak_zk_evm_tpu_torch.fields import Q_MOD
+    from tokamak_zk_evm_tpu_torch.host.curve import g1_scalar_mul_affine
+    from tokamak_zk_evm_tpu_torch.ops import curve as TC
+
+    rng = np.random.default_rng(21)
+    base = [g1_scalar_mul_affine(G1.gen, int(k)) for k in rng.integers(1, 1 << 40, size=16)]
+    a, b = [], []
+    for i in range(5000):
+        p, q = base[i % 16], base[(i * 7 + 3) % 16]
+        case = i % 6
+        a.append(None if case in (3, 5) else p)
+        b.append({1: p, 2: (p[0], (-p[1]) % Q_MOD), 4: None, 5: None}.get(case, q))
+    P = TC.affine_to_jac(*TC.pack_affine(a, dev))
+    Q = TC.affine_to_jac(*TC.pack_affine(b, dev))
+    Q2 = K.g1_dbl(Q)  # infinities now (1, 1, 0)
+    counts = {k: k.launches for k in (K.G1_ADD, K.G1_DBL, K.G1_TO_AFFINE)}
+    for q in (Q, Q2):
+        got = K.g1_add(P, q)
+        assert all(torch.equal(g, w) for g, w in zip(got, K.plain_g1_add(P, q)))
+        assert all(torch.equal(g, w) for g, w in zip(K.g1_to_affine(got), K.plain_g1_to_affine(got)))
+    assert all(torch.equal(g, w) for g, w in zip(K.g1_dbl(P), K.plain_g1_dbl(P)))
+    assert {k: k.launches - n for k, n in counts.items()} == {K.G1_ADD: 2, K.G1_DBL: 1,
+                                                               K.G1_TO_AFFINE: 2}
+    want = [G1.to_affine(G1.add(G1.from_affine(p), G1.double(G1.from_affine(q))))
+            for p, q in zip(a[:60], b[:60])]
+    assert _affine_jac(tuple(c[:, :60] for c in K.g1_add(P, Q2))) == want
+
+
+def _mpc_points(n, seed, dev):
+    from tokamak_zk_evm_tpu_torch.host.curve import g1_scalar_mul_affine
+    from tokamak_zk_evm_tpu_torch.ops import curve as TC
+
+    rng = np.random.default_rng(seed)
+    pts = [g1_scalar_mul_affine(G1.gen, int(k)) for k in rng.integers(1, 1 << 50, size=n)]
+    pts[1] = None
+    return TC.pack_affine(pts, dev)
+
+
+@pytest.mark.parametrize("windows", ["4-bit", "1-bit"])
+def test_ceremony_multiplier_on_card(dev, windows, monkeypatch):
+    """The ceremony's multiplier (B13's kernels) on the card == the CPU
+    port: one scalar a lane (0, 1, r-1, r planted), one shared scalar, and
+    the outer layout of xy_powers (a point for each run of lanes, the scalar
+    table cycling), at 4-bit windows and, with the table limit lowered, at
+    1-bit ones (every window gathered)."""
+    from tokamak_zk_evm_tpu_torch.fields import R_MOD
+    from tokamak_zk_evm_tpu_torch.models import mpc_setup as M
+
+    if windows == "1-bit":
+        monkeypatch.setattr(M, "_WINDOW_POINTS", 1)
+    rng = np.random.default_rng(33)
+    n = 64
+    ks = [0, 1, R_MOD - 1, R_MOD] + [int.from_bytes(rng.bytes(32), "little") % R_MOD
+                                    for _ in range(n - 4)]
+    pts = {d: _mpc_points(n, 34, d) for d in ("cpu", dev)}
+
+    def run(d):
+        per_lane = M._g1_mul_many(pts[d], ks)
+        shared = M._g1_mul_many(pts[d], ks[7])
+        lanes = torch.arange(16 * 8, device=d)
+        outer = M._mul_jobs([(M._jac(tuple(c[..., :16] for c in pts[d])), ks[4:12], lanes % 8,
+                              lanes // 8)])[0]
+        return per_lane + shared + tuple(outer)
+
+    for got, want in zip(run(dev), run("cpu")):
+        assert torch.equal(got.cpu(), want)
+
+
+def test_group_lagrange_on_card(dev):
+    """Inverse group NTTs of sizes 8 (two side by side) and 32 on the card
+    == the CPU port."""
+    from tokamak_zk_evm_tpu_torch.models import mpc_setup as M
+
+    def run(d):
+        a, b = _mpc_points(16, 35, d), _mpc_points(32, 36, d)
+        outs = M._group_lagrange([(M._jac(a), 8), (M._jac(b), 32)])
+        return [c for o in outs for c in K.g1_to_affine(o)]
+
+    for got, want in zip(run(dev), run("cpu")):
+        assert torch.equal(got.cpu(), want)
+
+
+def test_toy_ceremony_on_card_matches_cpu(dev):
+    """The seeded toy ceremony (one phase-1 contribution, phase-2 prepare,
+    one phase-2 contribution) on the card == on the CPU: accumulator JSON,
+    every family and host point; each step verifies on the card."""
+    import dataclasses
+    import json
+
+    from tokamak_zk_evm_tpu_torch.models import mpc_setup as M
+    from tokamak_zk_evm_tpu_torch.testing.fixtures import build_fixture
+
+    fx = build_fixture()
+
+    def run(d):
+        rng = np.random.default_rng(3)
+        acc0 = M.Phase1Accumulator.initial(fx.params)
+        acc, proof1 = acc0.compute(rng, d)
+        sigma = M.phase2_prepare(acc, 0xBEEF, fx.params, fx.library, fx.infos, d)
+        cur, proof2 = M.phase2_contribute(sigma, rng)
+        return acc0, acc, proof1, sigma, cur, proof2
+
+    acc0, acc, proof1, sigma, cur, proof2 = run(dev)
+    c_acc0, c_acc, _, c_sigma, c_cur, c_proof2 = run("cpu")
+    assert json.dumps(acc.to_json()) == json.dumps(c_acc.to_json())
+    assert proof2.to_json() == c_proof2.to_json()
+    for s, c in ((sigma, c_sigma), (cur, c_cur)):
+        for name in M._FAMILIES:
+            assert all(torch.equal(a.cpu(), b) for a, b in
+                       zip(getattr(s.sigma_1, name), getattr(c.sigma_1, name))), name
+        s1, c1 = (dataclasses.replace(x.sigma_1, **{f: None for f in M._FAMILIES})
+                  for x in (s, c))
+        assert s1 == c1 and s.sigma_2 == c.sigma_2 and s.lagrange_KL == c.lagrange_KL
+    assert acc0.verify(acc, proof1, np.random.default_rng(1), dev)
+    assert M.phase2_verify(sigma, cur, proof2, np.random.default_rng(2))

@@ -153,3 +153,28 @@ def test_wrapper_rejects_bad_layout():
         K.fr_mul(torch.zeros((16, 4), dtype=torch.int64), torch.zeros((16, 4), dtype=torch.int64))
     with pytest.raises(ValueError):
         K.fq_add(torch.zeros((16, 4), dtype=torch.int32), torch.zeros((16, 4), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+@pytest.mark.parametrize("n", [1, 64, 65, 300])
+def test_mul_reductions_agree(field, n):
+    """The plain Montgomery product reduces narrow batches (up to
+    `_REDC_COLUMNS`) on whole columns and wider ones word by word: both
+    routes give the JAX package's product, either side of the switch."""
+    from tokamak_zk_evm_tpu_torch.backend import limbs
+
+    spec = SPECS[field]
+    F = limbs.FR_LIMBS if field == "fr" else limbs.FQ_LIMBS
+    a = rand_limbs(spec, (n,), 31 + n)
+    b = np.ascontiguousarray(a[:, ::-1])
+    want = np.asarray((JF.fr_mul if field == "fr" else JF.fq_mul)(jnp.asarray(a), jnp.asarray(b)))
+    ta, tb = (torch.as_tensor(x.astype(np.int64)) for x in (a, b))
+    got = [limbs._mul_redc(F, ta, tb)]
+    for cols in (0, 1 << 20):  # every batch word by word, every batch on whole columns
+        old, limbs._REDC_COLUMNS = limbs._REDC_COLUMNS, cols
+        try:
+            got.append(limbs._mul_cols(F, ta, tb))
+        finally:
+            limbs._REDC_COLUMNS = old
+    for g in got:
+        assert np.array_equal(g.numpy().astype(np.uint32), want)

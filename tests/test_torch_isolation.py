@@ -5,8 +5,8 @@
   digest;
 * no file of the port and not `chip_smoke.py` names `jax` or
   `tokamak_zk_evm_tpu` in an import;
-* the entry points (and the CRS loaders and the CLI) raise without a CUDA
-  device unless given device="cpu";
+* the entry points (and the CRS loaders, the ceremony's steps and the CLI)
+  raise without a CUDA device unless given device="cpu";
 * the port's copies of the JAX-free host modules agree with the originals,
   the I/O ones (`io/artifacts.py`, `io/rkyv_oracle.py`,
   `io/subcircuit_library.py`) file for file on the toy fixture.
@@ -44,6 +44,11 @@ sigma = generate_sigma(fx.params, Tau.fixed(), fx.library, fx.infos, device="cpu
 proof, _ = Prover(fx.params, sigma, fx.library, fx.infos, fx.placements, fx.permutation,
                   fx.instance, mixer=Mixer.zero(), device="cpu").prove()
 assert hashlib.sha256(canonical_proof_bytes(proof)).hexdigest() == GOLDEN_PROOF_SHA256
+from tokamak_zk_evm_tpu_torch.models import dusk_pot, mpc_setup
+acc = mpc_setup.Phase1Accumulator.initial(fx.params)
+acc1, proof = acc.compute(__import__("numpy").random.default_rng(0), "cpu")
+assert mpc_setup.Phase1Proof.from_json(proof.to_json(), "cpu") == proof
+assert dusk_pot.g1_from_bytes(dusk_pot.g1_to_bytes(acc1.x_g1[0], True), True) == acc1.x_g1[0]
 assert not any(m == "jax" or m.startswith(("jax.", "tokamak_zk_evm_tpu."))
                for m, v in sys.modules.items() if v is not None)
 print("PROVED-WITHOUT-JAX")
@@ -86,9 +91,16 @@ def _entry_points():
 
     from tokamak_zk_evm_tpu_torch.cli import main
     from tokamak_zk_evm_tpu_torch.io import crs, rkyv_crs
+    from tokamak_zk_evm_tpu_torch.models import mpc_setup as M
 
     fx = build_fixture()
+    acc = M.Phase1Accumulator.initial(fx.params)
     return {
+        "phase1_compute": lambda: acc.compute(np.random.default_rng(0)),
+        "phase1_verify": lambda: acc.verify(acc, None),
+        "phase1_from_json": lambda: M.Phase1Accumulator.from_json(acc.to_json()),
+        "phase2_prepare": lambda: M.phase2_prepare(acc, 5, fx.params, fx.library, fx.infos),
+        "cli_mpc": lambda: main(["mpc", "phase1-init", "--library", "x", "--output", "y"]),
         "generate_sigma": lambda: generate_sigma(fx.params, Tau.fixed(), fx.library, fx.infos),
         "Prover": lambda: Prover(fx.params, None, fx.library, fx.infos, fx.placements,
                                  fx.permutation, fx.instance),
@@ -101,7 +113,9 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["generate_sigma", "Prover", "preprocess", "Verifier",
-                                  "load_sigma", "read_combined_sigma", "cli"])
+                                  "load_sigma", "read_combined_sigma", "cli",
+                                  "phase1_compute", "phase1_verify", "phase1_from_json",
+                                  "phase2_prepare", "cli_mpc"])
 def test_entry_points_need_cuda_or_cpu_argument(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")

@@ -56,6 +56,11 @@ SIGNATURES = {
     "g1": {
         "tzk_g1_fixed_base": [_P, _P, _I, _P, _P, _P, _LL, _P],
     },
+    "g1_ops": {
+        "tzk_g1_add": [_P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _LL, _P],
+        "tzk_g1_dbl": [_P, _P, _P, _P, _P, _P, _LL, _P],
+        "tzk_g1_affine": [_P, _P, _P, _P, _P, _P, _P, _LL, _P],
+    },
     "msm": {
         "tzk_msm_bucket_sum": [_I, _P, _P, _P, _P, _P, _LL, _P, _P],
         "tzk_msm_window_reduce": [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _P],

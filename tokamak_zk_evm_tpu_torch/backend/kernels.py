@@ -13,8 +13,8 @@ A wrapper dispatches on the device of its tensor argument:
 
 The kernels (see each source's header for the TPU kernel it replaces, what
 bounds it on the card, and what its design does about that; K1 and K5 run
-on `csrc/field.cuh`'s arithmetic, K2 and K3 on `fr_chain.cuh`'s and K2 and
-K4 on `fq_chain.cuh`'s carry chains):
+on `csrc/field.cuh`'s arithmetic, K2 and K3 on `fr_chain.cuh`'s and K2, K4 and
+B13 on `fq_chain.cuh`'s carry chains):
 
   K1 csrc/field_ew.cu   FR_EW / FQ_EW    add, sub, mul, neg
   K2 csrc/field_inv.cu  FIELD_INV        inversion, an extended gcd a thread
@@ -30,11 +30,14 @@ K4 on `fq_chain.cuh`'s carry chains):
                         MSM_WINDOW       sum_b b * B_b, one level of segments
   K5 csrc/g1_affine.cu  AFF_PRE          affine-add slope denominators
                         AFF_POST         affine add from the inverted ones
+  B13 csrc/g1_ops.cu    G1_ADD           complete jacobian add
+                        G1_DBL           jacobian doubling
+                        G1_TO_AFFINE     x Z^-2, y Z^-3 and inf, after K2
+                                         inverts Z
 
 `fr_prefix_prod` / `fr_suffix_prod` are a log-depth scan over the Fr mul
-kernel, and `g1_add` / `g1_dbl` / `g1_to_affine` chains of field ops, as the
-JAX package's Pallas backend builds them.  The fixed-base op's 12-bit table
-is built by the op itself (at 8 bits) and `g1_to_affine`.
+kernel, as the JAX package's Pallas backend builds it.  The fixed-base op's
+12-bit table is built by the op itself (at 8 bits) and `g1_to_affine`.
 """
 
 from __future__ import annotations
@@ -76,8 +79,11 @@ MSM_BUCKET_SUM = Kernel("msm_bucket_sum", "msm.cu", f"{_PK}:1254")
 MSM_WINDOW = Kernel("msm_window_reduce", "msm.cu", f"{_PK}:1408")
 AFF_PRE = Kernel("aff_pre", "g1_affine.cu", f"{_PK}:1055")
 AFF_POST = Kernel("aff_post", "g1_affine.cu", f"{_PK}:1096")
+G1_ADD = Kernel("g1_add", "g1_ops.cu", f"{_PK}:824")
+G1_DBL = Kernel("g1_dbl", "g1_ops.cu", f"{_PK}:810")
+G1_TO_AFFINE = Kernel("g1_to_affine", "g1_ops.cu", f"{_PK}:867")
 KERNELS = (FR_EW, FQ_EW, FIELD_INV, BATCH_INV, NTT, G1_FIXED_BASE, MSM_BUCKET_SUM,
-           MSM_WINDOW, AFF_PRE, AFF_POST)
+           MSM_WINDOW, AFF_PRE, AFF_POST, G1_ADD, G1_DBL, G1_TO_AFFINE)
 
 
 def reset_counts() -> None:
@@ -444,7 +450,7 @@ def ntt_split(data, pows, scale=None, axis=2, n1=2):
 
 # ---------------------------------------------------------------------------
 # G1 point formulas over an arithmetic: the plain versions (limbs on int64)
-# and the composed ops g1_add / g1_dbl (field-op wrappers on int32).
+# of B13's kernels and of the MSM stages.
 # ---------------------------------------------------------------------------
 
 
@@ -467,8 +473,6 @@ class _Arith:
 
 _PLAIN = _Arith(lambda a, b: limbs.mul(_FQ, a, b), lambda a, b: limbs.add(_FQ, a, b),
                 lambda a, b: limbs.sub(_FQ, a, b), torch.int64)
-_OPS_FQ = _Arith(lambda a, b: fq_mul(a, b), lambda a, b: fq_add(a.contiguous(), b.contiguous()),
-                 lambda a, b: fq_sub(a.contiguous(), b.contiguous()), torch.int32)
 
 
 def _sel(mask, a, b):
@@ -566,37 +570,12 @@ def _expand_rep(q, Ba, rep):
     return tuple(c[:, idx].contiguous() for c in q)
 
 
-def g1_add(p, q, rep=1):
-    """Complete jacobian add of [24, B] point triples (b broadcast by rep):
-    a chain of K1 launches (`ops.curve.jac_add`, `jac_sum_tree`).  K4's
-    kernels add points with their own device formulas."""
-    q = _expand_rep(q, p[0].shape[1], rep)
-    return jac_add(_OPS_FQ, p, q)
-
-
 def _dbl_complete(ar, p):
     """`jac_dbl` with infinity in, infinity (1, 1, 0) out."""
     X, Y, Z = jac_dbl(ar, p)
     ix, iy, iz = _inf(ar, X.shape[1], X.device)
     inf = _is_zero(p[2])
     return _sel(inf, ix, X), _sel(inf, iy, Y), _sel(inf, iz, Z)
-
-
-def g1_dbl(p):
-    """Jacobian doubling of [24, B] point triples, a chain of K1 launches
-    (`ops.curve.jac_double`)."""
-    return _dbl_complete(_OPS_FQ, p)
-
-
-def g1_to_affine(p):
-    """Jacobian -> (x, y, inf) by one Fq batch inversion of Z (infinity gives
-    x = y = 0, inf = 1)."""
-    X, Y, Z = p
-    zi = fq_batch_inv(Z)
-    zi2 = fq_mul(zi, zi)
-    x = fq_mul(X, zi2)
-    y = fq_mul(Y, fq_mul(zi2, zi))
-    return x, y, _is_zero(Z).to(torch.int32)
 
 
 def _int64(p):
@@ -608,7 +587,7 @@ def _int32(p):
 
 
 def plain_g1_add(p, q, rep=1):
-    """Plain version of `g1_add`: the same formulas on int64 limbs."""
+    """Plain version of `g1_add`: the complete add on int64 limbs."""
     q = _expand_rep(q, p[0].shape[1], rep)
     return _int32(jac_add(_PLAIN, _int64(p), _int64(q)))
 
@@ -618,14 +597,81 @@ def plain_g1_dbl(p):
     return _int32(_dbl_complete(_PLAIN, _int64(p)))
 
 
-def plain_g1_to_affine(p):
-    """Plain version of `g1_to_affine`."""
+def plain_g1_affine_scale(p, zi):
+    """Plain version of `g1_affine_scale`."""
     X, Y, Z = p
-    zi = plain_batch_inv(1, Z).to(torch.int64)
+    zi = zi.to(torch.int64)
     zi2 = limbs.mul(_FQ, zi, zi)
     x = limbs.mul(_FQ, X.to(torch.int64), zi2)
     y = limbs.mul(_FQ, Y.to(torch.int64), limbs.mul(_FQ, zi2, zi))
     return x.to(torch.int32), y.to(torch.int32), _is_zero(Z).to(torch.int32)
+
+
+def plain_g1_to_affine(p):
+    """Plain version of `g1_to_affine`."""
+    return plain_g1_affine_scale(p, plain_batch_inv(1, p[2]))
+
+
+def _check_pt(p, name: str) -> None:
+    for c, k in zip(p, "XYZ"):
+        _check(c, FQ_L, f"{name}.{k}")
+    if not p[0].shape == p[1].shape == p[2].shape:
+        raise ValueError(f"{name}: coordinates of different shapes")
+
+
+def g1_add(p, q, rep=1):
+    """Complete jacobian add of [24, B] point triples, q broadcast as K1
+    broadcasts b (lane i reads q at i when q is as wide as p, else at
+    (i / rep) % Bq): one launch of the B13 add kernel."""
+    _check_pt(p, "p")
+    _check_pt(q, "q")
+    if rep < 1:
+        raise ValueError("rep must be >= 1")
+    if not on_card(*p, *q):
+        return plain_g1_add(p, q, rep)
+    out = tuple(torch.empty_like(c) for c in p)
+    build.call("g1_ops", "tzk_g1_add", *[_ptr(c) for c in p], *[_ptr(c) for c in q],
+               q[0].shape[1], rep, *[_ptr(o) for o in out], p[0].shape[1], _stream(p[0]))
+    G1_ADD.launches += 1
+    return out
+
+
+def g1_dbl(p):
+    """Jacobian doubling of [24, B] point triples (infinity gives (1, 1, 0)):
+    one launch of the B13 doubling kernel."""
+    _check_pt(p, "p")
+    if not on_card(*p):
+        return plain_g1_dbl(p)
+    out = tuple(torch.empty_like(c) for c in p)
+    build.call("g1_ops", "tzk_g1_dbl", *[_ptr(c) for c in p], *[_ptr(o) for o in out],
+               p[0].shape[1], _stream(p[0]))
+    G1_DBL.launches += 1
+    return out
+
+
+def g1_to_affine(p):
+    """Jacobian -> (x, y, inf) by one Fq batch inversion of Z (K2), then one
+    launch of the B13 affine kernel (infinity gives x = y = 0, inf = 1)."""
+    _check_pt(p, "p")
+    if not on_card(*p):
+        return plain_g1_to_affine(p)
+    return g1_affine_scale(p, fq_batch_inv(p[2]))
+
+
+def g1_affine_scale(p, zi):
+    """(X zi^2, Y zi^3, Z == 0) for jacobian p and zi = Z^-1 (0 where Z = 0):
+    the B13 affine kernel, one launch."""
+    _check_pt(p, "p")
+    _check(zi, FQ_L, "zi")
+    if not on_card(*p, zi):
+        return plain_g1_affine_scale(p, zi)
+    X, Y, Z = p
+    x, y = torch.empty_like(X), torch.empty_like(Y)
+    inf = torch.empty(X.shape[1], dtype=torch.int32, device=X.device)
+    build.call("g1_ops", "tzk_g1_affine", _ptr(X), _ptr(Y), _ptr(Z), _ptr(zi), _ptr(x), _ptr(y),
+               _ptr(inf), X.shape[1], _stream(X))
+    G1_TO_AFFINE.launches += 1
+    return x, y, inf
 
 
 # ---------------------------------------------------------------------------
@@ -1100,7 +1146,7 @@ def _msm_windows(scalars, px, py, pinf, bucket_sum, window_reduce):
     dev = px.device
     c, nwin, pidx, bucket, counts = msm_plan(scalars, pinf)
     if pidx.numel() == 0:
-        return (_inf(_OPS_FQ, nwin, dev), c)
+        return (_int32(_inf(_PLAIN, nwin, dev)), c)
     sums = segment_sums(bucket_sum, 0, pack_points(px, py), pidx, counts)
     del pidx
     return (unpack_points(window_sums(window_reduce, sums, bucket, nwin, 1 << c), 3), c)

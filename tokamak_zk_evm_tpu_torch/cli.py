@@ -12,13 +12,19 @@ runs only when asked):
     python -m tokamak_zk_evm_tpu_torch doctor
     python -m tokamak_zk_evm_tpu_torch install    --workspace DIR [--library DIR] [--no-setup] [--fixed-tau]
     python -m tokamak_zk_evm_tpu_torch extract-proof --synthesizer DIR --preprocess DIR --prove DIR --output ZIP
+    python -m tokamak_zk_evm_tpu_torch mpc phase1-init       --library DIR --output ACC.json
+    python -m tokamak_zk_evm_tpu_torch mpc phase1-contribute --acc ACC.json --output ACC.json --proof PROOF.json
+    python -m tokamak_zk_evm_tpu_torch mpc phase1-verify     --prev ACC.json --cur ACC.json --proof PROOF.json
+    python -m tokamak_zk_evm_tpu_torch mpc phase2-prepare    --library DIR --acc ACC.json --y-hex HEX --output DIR
+    python -m tokamak_zk_evm_tpu_torch mpc phase2-contribute --crs DIR --output DIR
     python -m tokamak_zk_evm_tpu_torch --device cpu ...
 
 `--synthesizer DIR` holds the synthesizer outputs (`placementVariables.json`,
 `instance.json`, `permutation.json`); `--library DIR` is a qap-compiler
-library dir (`subcircuits/library` layout).  `verify` prints `true`/`false`
-like the reference verifier.  A CRS dir written by either package is read
-by the other (`io/crs.py`, `io/rkyv_crs.py`).
+library dir (`subcircuits/library` layout).  `verify` and `mpc
+phase1-verify` print `true`/`false` like the reference verifier.  A CRS dir
+written by either package is read by the other (`io/crs.py`,
+`io/rkyv_crs.py`), and so are the ceremony's accumulator and proof files.
 """
 
 from __future__ import annotations
@@ -234,6 +240,58 @@ def cmd_verify(args) -> int:
     return 0 if ok else 1
 
 
+def cmd_mpc(args) -> int:
+    """MPC ceremony flows (reference `native_mpc_setup`,
+    `setup/mpc-setup/src/flows/*`), the group work on `--device`."""
+    from .io import artifacts as art, crs
+    from .models import mpc_setup as M
+    from .utils.rng import secure_rng
+
+    device = _device(args)
+    step = args.step
+    if step == "phase1-init":
+        params = art.load_setup_params(
+            os.path.join(_resolve_library(args), "setupParams.json"))
+        acc = M.Phase1Accumulator.initial(params)
+        acc.save(args.output)
+        _log(f"[mpc] initial phase-1 accumulator -> {args.output}")
+        return 0
+    if step == "phase1-contribute":
+        acc = M.Phase1Accumulator.load(args.acc, device)
+        new_acc, proof = acc.compute(secure_rng(), device)
+        new_acc.save(args.output)
+        with open(args.proof, "w") as f:
+            json.dump(proof.to_json(), f)
+        _log(f"[mpc] contribution #{new_acc.contributor_index} -> "
+             f"{args.output} (proof {args.proof})")
+        return 0
+    if step == "phase1-verify":
+        prev = M.Phase1Accumulator.load(args.prev, device)
+        cur = M.Phase1Accumulator.load(args.cur, device)
+        with open(args.proof) as f:
+            proof = M.Phase1Proof.from_json(json.load(f), device)
+        ok = prev.verify(cur, proof, device=device)
+        print("true" if ok else "false")
+        return 0 if ok else 1
+    if step == "phase2-prepare":
+        params, infos, library = art.load_library(_resolve_library(args))
+        acc = M.Phase1Accumulator.load(args.acc, device)
+        y = int(args.y_hex, 16)
+        sigma = M.phase2_prepare(acc, y, params, library, infos, device)
+        crs.save_sigma(sigma, args.output)
+        _log(f"[mpc] phase-2 prepared CRS (gamma=delta=eta=1) -> {args.output}")
+        return 0
+    if step == "phase2-contribute":
+        sigma = crs.load_sigma(args.crs, device)
+        new_sigma, proof = M.phase2_contribute(sigma, secure_rng())
+        crs.save_sigma(new_sigma, args.output)
+        with open(os.path.join(args.output, "phase2_proof.json"), "w") as f:
+            json.dump(proof.to_json(), f)
+        _log(f"[mpc] phase-2 contribution -> {args.output}")
+        return 0
+    raise SystemExit(f"unknown mpc step {step}")
+
+
 def cmd_doctor(args) -> int:
     """Health check: torch, the CUDA devices, the kernel builds, and the
     field self-test (r-1)^2 == 1 through K1 on the chosen device."""
@@ -327,6 +385,21 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--proof", required=True)
     s.add_argument("--synthesizer", required=True)
     s.set_defaults(fn=cmd_verify)
+
+    s = sub.add_parser("mpc", help="MPC setup ceremony (powers-of-tau)")
+    s.add_argument("step", choices=(
+        "phase1-init", "phase1-contribute", "phase1-verify",
+        "phase2-prepare", "phase2-contribute",
+    ))
+    s.add_argument("--library")
+    s.add_argument("--acc")
+    s.add_argument("--prev")
+    s.add_argument("--cur")
+    s.add_argument("--proof")
+    s.add_argument("--crs")
+    s.add_argument("--y-hex", help="public beacon value for y (phase2-prepare)")
+    s.add_argument("--output")
+    s.set_defaults(fn=cmd_mpc)
 
     s = sub.add_parser("doctor", help="environment health check")
     s.set_defaults(fn=cmd_doctor)
