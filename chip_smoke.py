@@ -12,15 +12,19 @@ Phases, in order (any mismatch or exception exits non-zero):
      and stack frame, and require that the MSM build reports exactly its
      three stage kernels (the bucket sum's two passes and the window
      reduce), the NTT build its pass kernel, the G1 build its fixed-base
-     kernel, the G1 ops build B13's three (add, doubling, to-affine) and the
-     inversion build its six (three a field), each with no stack frame and
-     no spills;
+     kernel, the G1 ops build B13's three (add, doubling, to-affine), the
+     inversion build its six (three a field) and the scan build B6's three
+     (tile totals, their scan, the tiles), each with no stack frame and no
+     spills;
   3. each kernel against its plain PyTorch version on the card, exact:
      K1 on Fr and Fq batches holding 0, 1 and p-1; K2's inversion at 1 and
      4096 elements and its batch inversion at 1, 2, its one-launch width
      +-1, a tile past it, 2^20 (Fr) and 2^22 (Fq), with zeros at tile and
      warp edges, and on all-zero batches, each also against host inverses
-     (`pow`) on a sample, a * a^-1 == 1, and one launch or three; K3
+     (`pow`) on a sample, a * a^-1 == 1, and one launch or three; B6's
+     prefix and suffix scans at 1, 2, a tile +-1, two tiles + 1 and 2^20,
+     without zeros and with zeros at thread, warp and tile edges, and on
+     zeros alone, one launch or three; K3
      forward and inverse
      along both axes of a 16384 x 512 grid, on transforms past 16384 points
      (rows of 2^20, columns of 2^18), on a 2^23-point row and column (past
@@ -45,7 +49,8 @@ Phases, in order (any mismatch or exception exits non-zero):
      m_i=4096) on the default MSM core ("pippenger"): generate_sigma ->
      Prover.prove() -> preprocess -> verify_snark(), with every kernel's
      launch counter set to 0 just before and read just after; every kernel
-     of that path must have launched, and K5 not at all.  The run records
+     of that path (B6's scan included) must have launched, and K5 not at
+     all.  The run records
      each distinct call of K3 (grid, axis, tables), the fixed-base op's
      batch sizes and the widths of the batch inversions;
   5c. K3 against its plain version at every call signature phase 5
@@ -76,6 +81,18 @@ Phases, in order (any mismatch or exception exits non-zero):
      contributor a phase, secure rng), preprocess, prove --deterministic
      and verify (true) on the ceremony's CRS.  Counters set to 0 before,
      read after: B13's kernels, K1, K2 and K4's MSM stages must launch;
+  5f. the multi-device path (`parallel/`; the card machine has one GPU, and
+     NCCL refuses two ranks on one card): (i) a one-rank NCCL group, on
+     which `bintt_dist` at 16384 x 512, forward and inverse, must equal
+     `bintt` and `msm_dist` at 2^22 points the unsharded MSM and the O(1)
+     oracle, each timed beside its unsharded counterpart; (ii) two spawned
+     ranks sharing the card over gloo (collectives through host memory)
+     each prove `build_synthetic()` under `use_mesh` with `Mixer.zero()`:
+     both proofs must equal phase 5d's and hash to the JAX package's pinned
+     digest, verify, and show the dist counters, B6, K3 and K4's MSM stages
+     above zero on each rank; each rank's prove seconds, peak memory and
+     staged bytes are printed (two ranks on one card: not a scaling
+     figure);
   6. each kernel at the main path's shapes: held against its plain version
      there (every output of K1, K2, K3 on both axes, K5, the fixed-base
      kernel at 2^22 (against the plain version on the 8-bit table) and every
@@ -88,8 +105,9 @@ Phases, in order (any mismatch or exception exits non-zero):
      oracle too, and the window reduce at 8/2 buckets a thread against the
      default; K2's inversion at 4096 and 1 elements, its batch inversion at
      2^20 (Fr), 2^22, 2^10 and 1 (Fq), and one `g1_aff_add_batch` at 2^22
-     lanes, each beside its bound; B13's add, doubling and to-affine at
-     2^22 lanes.
+     lanes, each beside its bound; B6's suffix and prefix scans at 2^20
+     (round 1's), beside the K1 doubling chain they replaced; B13's add,
+     doubling and to-affine at 2^22 lanes.
 The last three lines are the nvidia-smi line, the kernels JSON and the device
 JSON. The port imports nothing of JAX; neither does this script.
 """
@@ -103,6 +121,8 @@ import os
 import subprocess
 import sys
 import time
+import traceback
+from datetime import timedelta
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -128,6 +148,7 @@ PTXAS_CLEAN = {
     "g1_ops": ("g1_add_kernel", "g1_dbl_kernel", "g1_affine_kernel"),
     "field_inv": tuple(f"{k}_{f}" for k in ("inv_kernel", "binv_up", "binv_down")
                        for f in ("fr", "fq")),
+    "fr_scan": ("scan_up", "scan_top", "scan_tile"),
 }
 
 
@@ -258,6 +279,7 @@ def check_kernels(torch, np, K, dev):
     torch.cuda.synchronize()
 
     check_inversion(torch, np, K, dev, rng)
+    check_scan(torch, K, dev)
 
     log("[3] K3 ntt at 16384 x 512, both axes: kernel == plain, exact")
     grid = T(rand_field(np, rng, FR, 16384 * 512).reshape(16, 16384, 512))
@@ -475,6 +497,40 @@ def check_inversion(torch, np, K, dev, rng):
             got = K.batch_inv(field, z)
             expect(torch.equal(got, z) and torch.equal(got, K.plain_batch_inv(field, z)),
                    f"{spec.name} batch inverse of {n} zeros is {n} zeros")
+    torch.cuda.empty_cache()
+
+
+def check_scan(torch, K, dev):
+    """B6 against its plain version, prefix and suffix, exact: at widths on
+    both sides of one tile (one launch) and past it (three), without zeros,
+    with zeros at thread (8 positions), warp (256) and tile (1024) edges in
+    the second half of the scan order, and on zeros alone."""
+    from tokamak_zk_evm_tpu_torch.backend import build
+
+    tile = K.SCAN_TILE
+    expect(build.lib("fr_scan").tzk_fr_scan_tile() == tile,
+           f"fr_scan.cu's tile == kernels.SCAN_TILE ({tile})")
+    log("[3] B6 fr_scan: kernel == plain, exact")
+    for n in (1, 2, tile - 1, tile, tile + 1, 2 * tile + 1, 1 << 20):
+        base = rand_fr(torch, (n,), 40 + n % 97, dev)
+        for reverse in (False, True):
+            edges = [e for b in range(0, n, tile) for e in (b + 7, b + 8, b + 255, b + 256,
+                                                            b + tile - 1)
+                     if e < n and (e >= n // 2) != reverse]
+            zeroed = base.clone()
+            zeroed[:, edges] = 0
+            for a, what in ((base, "no zeros"), (zeroed, f"{len(edges)} zeros at edges")):
+                before = K.FR_SCAN.launches
+                got = K.fr_scan(a, reverse)
+                launches = K.FR_SCAN.launches - before
+                expect(torch.equal(got, K.plain_fr_scan(a, reverse))
+                       and launches == (1 if n <= tile else 3),
+                       f"{'suffix' if reverse else 'prefix'} scan of {n} ({what}) == plain, "
+                       f"{launches} launch(es)")
+        del base
+    z = torch.zeros((16, tile + 1), dtype=torch.int32, device=dev)
+    expect(torch.equal(K.fr_scan(z), z) and torch.equal(K.fr_scan(z, True), z),
+           f"scans of {tile + 1} zeros are zeros")
     torch.cuda.empty_cache()
 
 
@@ -717,7 +773,8 @@ def drive_files(torch, np, K, dev, fx, sigma):
     in-process Mixer.zero() proof on that `sigma` and hashes to the JAX
     package's pinned digest, a proof with one limb changed prints false,
     and `python -m tokamak_zk_evm_tpu_torch doctor` passes.  The directory
-    is deleted at the end.  -> (counts, seconds)."""
+    is deleted at the end.  -> (counts, seconds, the Mixer.zero() proof's
+    canonical bytes)."""
     import io
     import shutil
     import tempfile
@@ -832,7 +889,7 @@ def drive_files(torch, np, K, dev, fx, sigma):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    return counts, t
+    return counts, t, art.canonical_proof_bytes(proof)
 
 
 class SeqRng:
@@ -1016,6 +1073,197 @@ def drive_ceremony_files(torch, dev, fx):
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     return t
+
+
+def dist_store(tag: str) -> tuple[str, str]:
+    """(scratch dir under the checkout's `.cache/`, a FileStore path in it)
+    for one process group."""
+    import tempfile
+
+    cache = os.path.join(ROOT, ".cache")
+    os.makedirs(cache, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_", dir=cache)
+    return tmp, os.path.join(tmp, "store")
+
+
+def drive_nccl_one(torch, np, K, dev):
+    """Phase 5f (i): a one-rank NCCL group (the real collectives, at the
+    main path's largest shapes): `bintt_dist` of a 16384 x 512 grid,
+    forward and inverse, == `bintt`; `msm_dist` of 2^22 oracle points and
+    the unsharded MSM == (sum k_i c_i) G, in turns (dist, MSM, MSM, dist);
+    each timed beside its unsharded counterpart.  The group is destroyed before the next phase.  -> stats."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from tokamak_zk_evm_tpu_torch.ops import msm as TM
+    from tokamak_zk_evm_tpu_torch.ops import ntt as NT
+    from tokamak_zk_evm_tpu_torch.parallel import mesh as PM
+    from tokamak_zk_evm_tpu_torch.parallel import msm_dist, ntt_dist
+
+    tmp, store = dist_store("5f_nccl")
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0, world_size=1)
+    stats = {}
+    try:
+        mesh = PM.make_mesh(device=dev)
+        expect(mesh.backend == "nccl" and mesh.size == 1, "a one-rank NCCL mesh")
+        PM.reset_counts()
+        grid = rand_fr(torch, (16384, 512), 31, dev)
+        for inverse in (False, True):
+            tag = "inverse" if inverse else "forward"
+            got = ntt_dist.bintt_dist(grid, mesh, inverse)
+            expect(torch.equal(got, NT.bintt(grid, inverse=inverse)),
+                   f"bintt_dist 16384 x 512 {tag} (NCCL, 1 rank) == bintt, byte for byte")
+            del got
+            d_ms = cuda_ms(torch, lambda: ntt_dist.bintt_dist(grid, mesh, inverse), 3)
+            l_ms = cuda_ms(torch, lambda: NT.bintt(grid, inverse=inverse), 3)
+            stats[f"bintt_dist_{tag}_ms"], stats[f"bintt_{tag}_ms"] = round(d_ms, 4), round(l_ms, 4)
+            log(f"  bintt_dist 16384 x 512 {tag}: {d_ms:.3f} ms; bintt {l_ms:.3f} ms "
+                f"(CUDA events, mean of 3)")
+        del grid
+        k, px, py, pinf, want = oracle_inputs(torch, np, K, dev, np.random.default_rng(8),
+                                              1 << 22)
+        runs = {"msm_dist": (lambda: msm_dist.msm_dist(k, px, py, pinf, mesh), []),
+                 "msm": (lambda: TM.msm(k, px, py, pinf), [])}
+        for name in ("msm_dist", "msm", "msm", "msm_dist"):  # in turns
+            fn, times = runs[name]
+            t0 = time.perf_counter()
+            got = fn()
+            times.append(round((time.perf_counter() - t0) * 1e3, 3))
+            expect(got == want, f"{name} of 2^22 points (NCCL, 1 rank) == (sum k_i c_i) G")
+        log(f"  msm_dist 2^22 points: {runs['msm_dist'][1]} ms; unsharded MSM "
+            f"{runs['msm'][1]} ms (host clock, in turns, each ending in the host combine)")
+        stats.update({"msm_dist_2^22_ms": runs["msm_dist"][1], "msm_2^22_ms": runs["msm"][1]})
+        c = PM.counts()
+        expect(c["bintt_dist"] > 0 and c["msm_dist"] > 0, f"dist counters above zero {c}")
+        del k, px, py, pinf
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    expect(not dist.is_initialized(), "the NCCL group is destroyed")
+    torch.cuda.empty_cache()
+    return stats
+
+
+def dist_rank(rank: int, world: int, store: str, out) -> None:
+    """Phase 5f (ii), one rank (a spawned process): join the gloo group,
+    build `build_synthetic()`'s CRS on the card (Tau.fixed()), prove under
+    `use_mesh` with `Mixer.zero()` (counters set to 0 just before, read
+    just after), verify; put the results on `out`."""
+    res = {"rank": rank}
+    try:
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        sys.path.insert(0, ROOT)
+        from tokamak_zk_evm_tpu_torch.backend import kernels as K
+        from tokamak_zk_evm_tpu_torch.io.artifacts import canonical_proof_bytes
+        from tokamak_zk_evm_tpu_torch.models.preprocess import preprocess
+        from tokamak_zk_evm_tpu_torch.models.protocol import Mixer
+        from tokamak_zk_evm_tpu_torch.models.prover import Prover
+        from tokamak_zk_evm_tpu_torch.models.setup import Tau, generate_sigma
+        from tokamak_zk_evm_tpu_torch.models.verifier import Verifier
+        from tokamak_zk_evm_tpu_torch.parallel import context
+        from tokamak_zk_evm_tpu_torch.parallel import mesh as PM
+        from tokamak_zk_evm_tpu_torch.testing.synthetic import build_synthetic
+
+        dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                                world_size=world, timeout=timedelta(seconds=600))
+        mesh = PM.make_mesh()  # cuda:(rank % cards): both ranks on the one card
+        dev = mesh.device
+        fx = build_synthetic()
+        p = fx.params
+        sigma = generate_sigma(p, Tau.fixed(), fx.library, fx.infos, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_counts()
+        PM.reset_counts()
+        with context.use_mesh(mesh):
+            t0 = time.perf_counter()
+            prover = Prover(p, sigma, fx.library, fx.infos, fx.placements, fx.permutation,
+                            fx.instance, mixer=Mixer.zero(), device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            proof, _ = prover.prove()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        res.update(init_s=round(t1 - t0, 3), prove_s=round(t2 - t1, 3), kernels=K.counts(),
+                   dist=PM.counts(), peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+                   proof=canonical_proof_bytes(proof), backend=mesh.backend, device=str(dev))
+        del prover
+        pre = preprocess(sigma, fx.permutation, fx.instance, p, device=dev)
+        res["verifies"] = Verifier(p, sigma, pre, fx.instance, proof,
+                                   rng=np.random.default_rng(7), device=dev).verify_snark()
+        dist.destroy_process_group()
+    except Exception:  # reported to the parent, which fails the phase
+        res["error"] = traceback.format_exc()[-4000:]
+    out.put(res)
+
+
+def drive_gloo_two(torch, K, want_proof: bytes):
+    """Phase 5f (ii): two spawned ranks sharing the one card over gloo,
+    each proving the synthetic full shape under the mesh (600 s at most).
+    -> each rank's results, in rank order."""
+    import queue
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from tokamak_zk_evm_tpu_torch.testing.synthetic import FULLSHAPE_PROOF_SHA256
+
+    world, timeout = 2, 600.0
+    tmp, store = dist_store("5f_gloo")
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=dist_rank, args=(r, world, store, out)) for r in range(world)]
+    got = {}
+    t0 = time.perf_counter()
+    try:
+        for proc in procs:
+            proc.start()
+        while len(got) < world:
+            if time.perf_counter() - t0 > timeout:
+                fail(f"phase 5f: {world - len(got)} rank(s) silent after {timeout:.0f} s")
+            try:
+                res = out.get(timeout=2.0)
+                got[res["rank"]] = res
+            except queue.Empty:
+                dead = [proc.exitcode for proc in procs if proc.exitcode not in (None, 0)]
+                if dead:
+                    fail(f"phase 5f: a rank exited with code {dead[0]} before reporting")
+        for proc in procs:
+            proc.join(timeout=60)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  {world} ranks done in {time.perf_counter() - t0:.3f} s (spawn, imports, fixture, "
+        f"setup, init, prove, verify)")
+    ranks = [got[r] for r in range(world)]
+    for res in ranks:
+        r = res["rank"]
+        expect("error" not in res, f"rank {r} ran" + (f":\n{res['error']}" if "error" in res else ""))
+        log(f"  rank {r} ({res['backend']}, {res['device']}; 2 ranks sharing one card, gloo via "
+            f"host memory; not a scaling figure): init {res['init_s']} s, prove "
+            f"{res['prove_s']} s, peak {res['peak_gib']} GiB, staged "
+            f"{res['dist']['staged_bytes']} B, dist calls bintt {res['dist']['bintt_dist']} "
+            f"msm {res['dist']['msm_dist']}")
+        log(f"  rank {r} kernels " + json.dumps(res["kernels"]))
+        digest = hashlib.sha256(res["proof"]).hexdigest()
+        expect(res["proof"] == want_proof and digest == FULLSHAPE_PROOF_SHA256,
+               f"rank {r}'s sharded proof == phase 5d's Mixer.zero() proof, digest "
+               f"{digest[:16]}... the JAX package's pinned one")
+        expect(res["verifies"] is True, f"rank {r}'s proof verifies (port Verifier)")
+        expect(res["dist"]["bintt_dist"] > 0 and res["dist"]["msm_dist"] > 0
+               and res["dist"]["staged_bytes"] > 0,
+               f"rank {r}: the sharded path ran (dist counters above zero)")
+        expect(all(res["kernels"][k.name] > 0 for k in (K.FR_SCAN, K.NTT, K.MSM_BUCKET_SUM,
+                                                         K.MSM_WINDOW)),
+               f"rank {r}: B6, K3 and K4's MSM stages launched")
+    return ranks
 
 
 def expect_launches(counts, ran, idle, path):
@@ -1393,6 +1641,24 @@ def measure(torch, np, K, dev, counts, fixed_sizes):
               *batch_inv_work(K, 1, a), reps)
     del a
     torch.cuda.empty_cache()
+    # B6 at round 1's suffix product (m_i * s_max = 2^20 Fr), then the
+    # prefix scan; bound: the array read and written once, and two products
+    # an element (a work-efficient scan's count); beside the K1 doubling
+    # chain it replaced (`utils/bench_scan.py`)
+    from tokamak_zk_evm_tpu_torch.utils.bench_scan import k1_chain
+
+    n = 1 << 20
+    a = rand_fr(torch, (n,), 21, dev)
+    scan_bytes, scan_ops = 2 * 64 * n, 2 * (n - 1) * FR_MUL_OPS
+    row(K.FR_SCAN, "Fr suffix scan 2^20", lambda: K.fr_scan(a, True),
+        lambda: K.plain_fr_scan(a, True), scan_bytes, scan_ops)
+    extra("prefix", "Fr prefix scan 2^20", lambda: K.fr_scan(a), lambda: K.plain_fr_scan(a),
+          scan_bytes, scan_ops, 5)
+    ms = cuda_ms(torch, lambda: k1_chain(K, a, True), 3)
+    rows[-1]["k1_chain_ms"] = round(ms, 4)
+    log(f"  {'fr_scan':18s} {'K1 chain, suffix 2^20':28s} {ms:10.3f} ms (the route it replaced)")
+    del a
+    torch.cuda.empty_cache()
     # prove2's largest bivariate grid, [16, 16384, 512]: its X pass (axis 1,
     # n = 16384, two passes), its Y pass (axis 2, n = 512, one), and the same
     # 16384-point rows laid along axis 2 ([16, 512, 16384]).  Bound: the grid
@@ -1676,12 +1942,12 @@ def main() -> int:
         _, proof_b, counts_b = drive(torch, np, K, dev, fx, "affine_tree", sigma)
     log("  batch inversions by width: " + json.dumps(calls_b["batch_inv"]))
     expect(proof_b == proof, "affine_tree proof bytes == pippenger proof bytes")
-    expect_launches(counts_b, affine + [K.FIELD_INV.name, K.BATCH_INV.name],
+    expect_launches(counts_b, affine + [K.FIELD_INV.name, K.BATCH_INV.name, K.FR_SCAN.name],
                     [K.MSM_BUCKET_SUM.name, K.MSM_WINDOW.name], "affine_tree path")
 
     log("[5d] the file-contract path: the port's CLI, setup -> preprocess -> prove -> verify "
         f"through files at the synthetic full shape ({gpu_line()})")
-    counts_d, _ = drive_files(torch, np, K, dev, fx, sigma)
+    counts_d, _, proof_zero = drive_files(torch, np, K, dev, fx, sigma)
     expect_launches(counts_d, [n for n in counts_d if n not in affine + not_needed], affine,
                     "file-contract path (5d)")
     del sigma
@@ -1703,6 +1969,14 @@ def main() -> int:
                                      K.BATCH_INV.name, K.MSM_BUCKET_SUM.name, K.MSM_WINDOW.name],
                     [], "ceremony path (5e)")
 
+    log(f"[5f] the multi-device path ({gpu_line()}): (i) one rank over NCCL")
+    t0 = time.perf_counter()
+    nccl_stats = drive_nccl_one(torch, np, K, dev)
+    log(f"  (i) {time.perf_counter() - t0:.3f} s")
+    log("[5f] (ii) two ranks sharing the card over gloo prove the synthetic full shape")
+    ranks_f = drive_gloo_two(torch, K, proof_zero)
+    del proof_zero
+
     log("[6] kernel times (CUDA events) beside plain versions and bounds")
     counts_5 = dict(counts)
     counts.update({n: counts_b[n] for n in affine})
@@ -1710,14 +1984,16 @@ def main() -> int:
     rows = measure(torch, np, K, dev, counts, sorted(calls["fixed_base"]))
     next(r for r in rows if r["name"] == K.AFF_POST.name)["affine_tree_msm_2^22"] = msm_stats
     binv_row = next(r for r in rows if r["name"] == K.BATCH_INV.name)
-    for kern in (K.FIELD_INV, K.BATCH_INV, K.G1_TO_AFFINE):
+    for kern in (K.FIELD_INV, K.BATCH_INV, K.FR_SCAN, K.G1_TO_AFFINE):
         next(r for r in rows if r["name"] == kern.name)["launches_5b"] = counts_b[kern.name]
     for r in rows:
         r["launches_5d"] = counts_d[r["name"]]
         r["launches_5e"] = counts_e[r["name"]]
+        r["launches_5f"] = [res["kernels"][r["name"]] for res in ranks_f]
         if r["name"] in b13:
             r["launches_5"] = counts_5[r["name"]]
     binv_row["widths_5"] = calls["batch_inv"]
+    next(r for r in rows if r["name"] == K.NTT.name)["nccl_one_rank_5f"] = nccl_stats
     binv_row["widths_5b"] = calls_b["batch_inv"]
     kernels_line = json.dumps({"kernels": rows})
 

@@ -80,6 +80,52 @@ def test_batch_inversion_widths(dev, field, width):
     assert torch.equal(got, K.plain_batch_inv(field, a))
 
 
+@pytest.mark.parametrize("width", ["1", "tile-1", "tile", "tile+1", "2^20"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_fr_scan_kernel(dev, reverse, width):
+    """B6 prefix and suffix against the plain scan, exact, one launch up to
+    a tile and three past it, with zeros at thread, warp and tile edges in
+    the second half of the scan order (the first half's outputs stay
+    nonzero)."""
+    tile = K.SCAN_TILE
+    n = {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1, "2^20": 1 << 20}[width]
+    a = rand(FR, n + 1, 5, dev)[:, 1:].contiguous()
+    for b in range(0, n, tile):
+        for e in (b + 7, b + 8, b + 255, b + 256, b + tile - 1):
+            if e < n and (e >= n // 2) != reverse:
+                a[:, e] = 0
+    before = K.FR_SCAN.launches
+    got = K.fr_scan(a, reverse)
+    assert K.FR_SCAN.launches - before == (1 if n <= tile else 3)
+    assert torch.equal(got, K.plain_fr_scan(a, reverse))
+
+
+def test_dist_ops_nccl_world_one(dev, tmp_path):
+    """`bintt_dist` and `msm_dist` on a one-rank NCCL group (the real
+    collectives) against `ops.ntt.bintt` and the MSM."""
+    import torch.distributed as dist
+
+    from tokamak_zk_evm_tpu_torch.ops import msm as TM
+    from tokamak_zk_evm_tpu_torch.parallel import mesh as PM
+    from tokamak_zk_evm_tpu_torch.parallel import msm_dist, ntt_dist
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = PM.make_mesh()
+        PM.reset_counts()
+        grid = rand(FR, 256 * 64, 9, dev).reshape(16, 256, 64)
+        for inverse in (False, True):
+            assert torch.equal(ntt_dist.bintt_dist(grid, mesh, inverse),
+                               NT.bintt(grid, inverse=inverse))
+        k = rand(FR, 4096, 10, dev)
+        fam = TM.fixed_base_msm_points(list(range(1, 4097)), G1.gen, dev)
+        assert msm_dist.msm_dist(k, *fam, mesh) == TM.msm(k, *fam)
+        assert PM.counts()["bintt_dist"] == 2 and PM.counts()["msm_dist"] == 1
+    finally:
+        dist.destroy_process_group()
+
+
 def plain_ntt_axis(data, axis, inverse, coset):
     """`ops.ntt.ntt_axis` through the plain versions of K1 and K3."""
     n = data.shape[axis]

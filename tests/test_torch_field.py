@@ -112,6 +112,41 @@ def test_scan_products_match_jax(which):
     assert np.array_equal(got, want)
 
 
+SCAN_ZEROS = (7, 8, 31, 32, 255, 256, 1023, 1024, 1025, 4096)  # thread, warp, tile edges
+
+
+@pytest.mark.parametrize("zeros", [False, True])
+@pytest.mark.parametrize("width", [1, 2, 255, 256, 257, 4097, 1 << 14])
+@pytest.mark.parametrize("which", ["prefix", "suffix"])
+def test_scan_widths_match_jax(which, width, zeros):
+    """B6 (`fr_prefix_prod` / `fr_suffix_prod`) against the JAX package's
+    scan at widths on both sides of a thread's, a warp's and a tile's
+    positions (csrc/fr_scan.cu: 8, 256, 1024), with zeros planted there or
+    none (a zero zeroes every output past it)."""
+    a = rand_limbs(FR, (width + 5,), 9 + width)[:, 5:].copy()  # no planted 0 / 1 first
+    if zeros:
+        a[:, [e for e in SCAN_ZEROS if e < width] or [0]] = 0
+    want = jax_out(getattr(JF, f"fr_{which}_prod")(jnp.asarray(a)))
+    got = port_out(getattr(TF, f"fr_{which}_prod")(to_port(a)))
+    assert np.array_equal(got, want)
+    assert (want != 0).any() or zeros
+
+
+def test_scan_tile_matches_kernel_source():
+    """The wrapper's SCAN_TILE is the kernel's THREADS x K, and a CPU tensor
+    takes the plain version (no launch counted)."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(K.__file__).parent / "csrc" / "fr_scan.cu").read_text()
+    threads = int(re.search(r"constexpr int THREADS = (\d+);", src).group(1))
+    per = int(re.search(r"constexpr int K = (\d+);", src).group(1))
+    assert threads * per == K.SCAN_TILE
+    before = K.FR_SCAN.launches
+    K.fr_scan(to_port(rand_limbs(FR, (3,), 1)))
+    assert K.FR_SCAN.launches == before
+
+
 @pytest.mark.parametrize("axis", [0, 1, -1])
 @pytest.mark.parametrize("which", ["sum", "suffix_sum"])
 def test_sums_match_jax(which, axis):

@@ -1,12 +1,13 @@
 """The port stands alone: no JAX, no JAX package, no silent CPU fallback.
 
 * a subprocess blocks `jax` (and the JAX package) in `sys.modules`, imports
-  the port and proves the toy fixture on the CPU, reproducing the golden
-  digest;
+  the port (the multi-device modules too) and proves the toy fixture on
+  the CPU, reproducing the golden digest;
 * no file of the port and not `chip_smoke.py` names `jax` or
   `tokamak_zk_evm_tpu` in an import;
-* the entry points (and the CRS loaders, the ceremony's steps and the CLI)
-  raise without a CUDA device unless given device="cpu";
+* the entry points (and the CRS loaders, the ceremony's steps, the CLI
+  and `parallel.multihost.init_from_env`) raise without a CUDA device
+  unless given device="cpu";
 * the port's copies of the JAX-free host modules agree with the originals,
   the I/O ones (`io/artifacts.py`, `io/rkyv_oracle.py`,
   `io/subcircuit_library.py`) file for file on the toy fixture.
@@ -45,6 +46,7 @@ proof, _ = Prover(fx.params, sigma, fx.library, fx.infos, fx.placements, fx.perm
                   fx.instance, mixer=Mixer.zero(), device="cpu").prove()
 assert hashlib.sha256(canonical_proof_bytes(proof)).hexdigest() == GOLDEN_PROOF_SHA256
 from tokamak_zk_evm_tpu_torch.models import dusk_pot, mpc_setup
+from tokamak_zk_evm_tpu_torch.parallel import context, mesh, msm_dist, multihost, ntt_dist
 acc = mpc_setup.Phase1Accumulator.initial(fx.params)
 acc1, proof = acc.compute(__import__("numpy").random.default_rng(0), "cpu")
 assert mpc_setup.Phase1Proof.from_json(proof.to_json(), "cpu") == proof
@@ -109,13 +111,32 @@ def _entry_points():
         "load_sigma": lambda: crs.load_sigma("no-such-dir"),
         "read_combined_sigma": lambda: rkyv_crs.read_combined_sigma("no-such-file", fx.params),
         "cli": lambda: main(["doctor"]),
+        "init_from_env": _init_from_env,
     }
+
+
+def _init_from_env():
+    """`multihost.init_from_env` with a two-process group named in the
+    environment: it must raise for the missing card before joining."""
+    from tokamak_zk_evm_tpu_torch.parallel import multihost
+
+    saved = {k: os.environ.get(k) for k in ("TZK_COORDINATOR", "TZK_NUM_PROCESSES",
+                                            "TZK_PROCESS_ID")}
+    os.environ.update(TZK_COORDINATOR="localhost:1", TZK_NUM_PROCESSES="2", TZK_PROCESS_ID="0")
+    try:
+        multihost.init_from_env()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 @pytest.mark.parametrize("name", ["generate_sigma", "Prover", "preprocess", "Verifier",
                                   "load_sigma", "read_combined_sigma", "cli",
                                   "phase1_compute", "phase1_verify", "phase1_from_json",
-                                  "phase2_prepare", "cli_mpc"])
+                                  "phase2_prepare", "cli_mpc", "init_from_env"])
 def test_entry_points_need_cuda_or_cpu_argument(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")

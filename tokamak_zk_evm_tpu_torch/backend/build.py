@@ -45,6 +45,12 @@ SIGNATURES = {
         "tzk_batch_inv_up": [_I, _P, _P, _P, _LL, _I, _P],
         "tzk_batch_inv_down": [_I, _P, _P, _P, _LL, _I, _P],
     },
+    "fr_scan": {
+        "tzk_fr_scan_tile": [],
+        "tzk_fr_scan_up": [_P, _P, _LL, _I, _P],
+        "tzk_fr_scan_top": [_P, _I, _P],
+        "tzk_fr_scan_tiles": [_P, _P, _P, _LL, _I, _P],
+    },
     "ntt": {
         "tzk_ntt_passes": [_LL, _LL],
         "tzk_ntt": [_P, _P, _P, _P, _P, _LL, _LL, _LL, _P],

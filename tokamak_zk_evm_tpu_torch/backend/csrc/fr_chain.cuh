@@ -1,6 +1,7 @@
 // BLS12-381 Fr Montgomery arithmetic on PTX carry chains, for K3's NTT
-// (ntt.cu) and K2's Fr inversions (field_inv.cu).  The same scheme as fq_chain.cuh's Fq arithmetic, whose carry
-// primitives it uses, over 8 words:
+// (ntt.cu), K2's Fr inversions (field_inv.cu) and B6's scan (fr_scan.cu).
+// The same scheme as fq_chain.cuh's Fq arithmetic, whose carry primitives
+// it uses, over 8 words:
 //
 // Values are 8 little-endian 32-bit words, Montgomery form (R = 2^256),
 // fully reduced into [0, r) after every operation, so results are

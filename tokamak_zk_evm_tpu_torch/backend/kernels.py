@@ -13,13 +13,16 @@ A wrapper dispatches on the device of its tensor argument:
 
 The kernels (see each source's header for the TPU kernel it replaces, what
 bounds it on the card, and what its design does about that; K1 and K5 run
-on `csrc/field.cuh`'s arithmetic, K2 and K3 on `fr_chain.cuh`'s and K2, K4 and
-B13 on `fq_chain.cuh`'s carry chains):
+on `csrc/field.cuh`'s arithmetic, K2, B6 and K3 on `fr_chain.cuh`'s and K2, K4
+and B13 on `fq_chain.cuh`'s carry chains):
 
   K1 csrc/field_ew.cu   FR_EW / FQ_EW    add, sub, mul, neg
   K2 csrc/field_inv.cu  FIELD_INV        inversion, an extended gcd a thread
                         BATCH_INV        tiled batch inversion (one tile, or
                                          up / top / down)
+  B6 csrc/fr_scan.cu    FR_SCAN          inclusive Fr product scan, prefix
+                                         or suffix (one tile, or up / top /
+                                         tiles)
   K3 csrc/ntt.cu        NTT              NTT along either grid axis, stages
                                          fused in shared memory, one or two
                                          passes, the scale folded in; past
@@ -35,9 +38,8 @@ B13 on `fq_chain.cuh`'s carry chains):
                         G1_TO_AFFINE     x Z^-2, y Z^-3 and inf, after K2
                                          inverts Z
 
-`fr_prefix_prod` / `fr_suffix_prod` are a log-depth scan over the Fr mul
-kernel, as the JAX package's Pallas backend builds it.  The fixed-base op's
-12-bit table is built by the op itself (at 8 bits) and `g1_to_affine`.
+The fixed-base op's 12-bit table is built by the op itself (at 8 bits) and
+`g1_to_affine`.
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ FR_EW = Kernel("fr_ew", "field_ew.cu", f"{_PK}:267")
 FQ_EW = Kernel("fq_ew", "field_ew.cu", f"{_PK}:267")
 FIELD_INV = Kernel("field_inv", "field_inv.cu", f"{_PK}:382")
 BATCH_INV = Kernel("batch_inv", "field_inv.cu", f"{_PK}:448")
+FR_SCAN = Kernel("fr_scan", "fr_scan.cu", f"{_PK}:571")
 NTT = Kernel("ntt", "ntt.cu", f"{_PK}:640")
 G1_FIXED_BASE = Kernel("g1_fixed_base", "g1.cu", f"{_PK}:961")
 MSM_BUCKET_SUM = Kernel("msm_bucket_sum", "msm.cu", f"{_PK}:1254")
@@ -82,7 +85,7 @@ AFF_POST = Kernel("aff_post", "g1_affine.cu", f"{_PK}:1096")
 G1_ADD = Kernel("g1_add", "g1_ops.cu", f"{_PK}:824")
 G1_DBL = Kernel("g1_dbl", "g1_ops.cu", f"{_PK}:810")
 G1_TO_AFFINE = Kernel("g1_to_affine", "g1_ops.cu", f"{_PK}:867")
-KERNELS = (FR_EW, FQ_EW, FIELD_INV, BATCH_INV, NTT, G1_FIXED_BASE, MSM_BUCKET_SUM,
+KERNELS = (FR_EW, FQ_EW, FIELD_INV, BATCH_INV, FR_SCAN, NTT, G1_FIXED_BASE, MSM_BUCKET_SUM,
            MSM_WINDOW, AFF_PRE, AFF_POST, G1_ADD, G1_DBL, G1_TO_AFFINE)
 
 
@@ -314,29 +317,60 @@ def fq_batch_inv(a):
     return batch_inv(1, a)
 
 
-def _scan_mul(a, reverse: bool):
-    """Inclusive prefix (or suffix) product over the batch axis: Hillis-Steele
-    doubling over the Fr mul op (log2 B launches of K1)."""
+# ---------------------------------------------------------------------------
+# B6: Fr product scan
+# ---------------------------------------------------------------------------
+
+SCAN_TILE = 1024  # csrc/fr_scan.cu TILE: up to it one launch, above three
+
+
+def plain_fr_scan(a, reverse: bool = False):
+    """Plain version of B6: Hillis-Steele doubling over the plain Fr product
+    (flipped for a suffix scan)."""
+    x = a.to(torch.int64)
     if reverse:
-        a = torch.flip(a, [1])
-    B = a.shape[1]
+        x = torch.flip(x, [1])
+    B = x.shape[1]
     d = 1
     while d < B:
-        nxt = a.clone()
-        nxt[:, d:] = fr_mul(a[:, d:].contiguous(), a[:, : B - d].contiguous())
-        a = nxt
+        x = torch.cat([x[:, :d], limbs.mul(_FR, x[:, d:], x[:, : B - d])], 1)
         d *= 2
     if reverse:
-        a = torch.flip(a, [1])
-    return a.contiguous()
+        x = torch.flip(x, [1])
+    return x.to(torch.int32).contiguous()
+
+
+def fr_scan(a, reverse: bool = False):
+    """Inclusive product over the batch axis of `a` [16, B]: out[i] = a[0]
+    ... a[i], or a[i] ... a[B-1] with `reverse`.  One launch up to
+    SCAN_TILE elements; above, the tile totals, their scan and the tiles
+    (three)."""
+    _check(a, FR_L, "a")
+    if not on_card(a):
+        return plain_fr_scan(a, reverse)
+    B = a.shape[1]
+    out = torch.empty_like(a)
+    if B == 0:
+        return out
+    s, rev = _stream(a), int(reverse)
+    tot = None
+    if B > SCAN_TILE:
+        tot = torch.empty((FR_L, -(-B // SCAN_TILE)), dtype=torch.int32, device=a.device)
+        build.call("fr_scan", "tzk_fr_scan_up", _ptr(a), _ptr(tot), B, rev, s)
+        FR_SCAN.launches += 1
+        build.call("fr_scan", "tzk_fr_scan_top", _ptr(tot), tot.shape[1], s)
+        FR_SCAN.launches += 1
+    build.call("fr_scan", "tzk_fr_scan_tiles", _ptr(a), _ptr(out), _ptr(tot), B, rev, s)
+    FR_SCAN.launches += 1
+    return out
 
 
 def fr_prefix_prod(a):
-    return _scan_mul(a, reverse=False)
+    return fr_scan(a)
 
 
 def fr_suffix_prod(a):
-    return _scan_mul(a, reverse=True)
+    return fr_scan(a, reverse=True)
 
 
 # ---------------------------------------------------------------------------

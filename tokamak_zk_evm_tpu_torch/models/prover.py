@@ -20,6 +20,9 @@ release to host numpy) are not carried over.
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+
 import numpy as np
 import torch
 
@@ -207,6 +210,22 @@ def _g1_lincomb(*terms):
     return G1.to_affine(acc)
 
 
+def _check_mixer(mixer: Mixer) -> None:
+    """Under a mesh of more than one rank (`parallel.context.use_mesh`),
+    raise unless every rank holds the same mixer.  Each rank runs the whole
+    prover, so ranks that drew their blinding apart would each make a
+    different proof; the JAX package draws it once, on its one controller."""
+    from ..parallel import context
+
+    mesh = context.get_mesh()
+    if mesh is None or mesh.size <= 1:
+        return
+    digest = hashlib.sha256(repr(dataclasses.astuple(mixer)).encode()).digest()
+    if not mesh.same_everywhere(digest):
+        raise ValueError("the ranks of the mesh hold different mixers; pass every rank the "
+                         "same Mixer (or the same rng)")
+
+
 class Prover:
     def __init__(
         self,
@@ -252,6 +271,7 @@ class Prover:
         if mixer is None:
             mixer = Mixer.random(rng) if rng is not None else Mixer.zero()
         self.mixer = mixer
+        _check_mixer(mixer)
 
         self.q0 = self.q1 = self.q2 = self.q3 = None
         self._w_zk = None
@@ -765,6 +785,7 @@ class Prover:
 
     # -- full pipeline (prove/src/main.rs flow) -------------------------
     def prove(self) -> tuple[Proof, Proof4Test]:
+        _check_mixer(self.mixer)
         manager = TranscriptManager()
         with timing.span("prove0", "prove"):
             proof0 = self.prove0()

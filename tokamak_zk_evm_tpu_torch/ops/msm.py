@@ -13,13 +13,17 @@ same sum, chosen by `use_core`:
 `msm_start` runs the current core; `msm_finish` knows an affine-tree
 handle by its type (`msm_affine.Handle`), pulls the core's points and
 combines them on the host.  Result: host affine point ((x, y) ints) or None.
-The JAX package's mesh branch (points sharded across chips) waits for the
-multi-device slice.
+Under a mesh of more than one rank (`parallel.context.use_mesh`) the points
+are split across the ranks (`parallel.msm_dist`), each running the current
+core on its block.
 """
 
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple
+
+import torch
 
 from ..backend import kernels as K
 from ..backend import msm_affine as MA
@@ -44,21 +48,61 @@ def use_core(name: str):
         _core = prev
 
 
+class Done(NamedTuple):
+    """The handle of an MSM already finished (a sharded one): its point."""
+
+    point: object
+
+
+def start_local(scalars_canonical, px, py, pinf):
+    """Enqueue the device part of an MSM on this device's current core."""
+    start = MA.g1_msm_start if _core == "affine_tree" else K.g1_msm_start
+    return start(scalars_canonical.contiguous(), px, py, pinf)
+
+
 def msm_start(scalars_canonical, px, py, pinf):
     """Enqueue the device part of an MSM on the current core; `msm_finish`
     brings the point home.  A round starts all its commitments before
-    finishing any."""
-    start = MA.g1_msm_start if _core == "affine_tree" else K.g1_msm_start
-    return start(scalars_canonical.contiguous(), px, py, pinf)
+    finishing any.
+
+    Under a mesh of more than one rank the points are padded to a multiple
+    of the mesh size (zero scalars on infinities) and split across the
+    ranks (`parallel.msm_dist`), eagerly: the partials' combine is its own
+    sync, and the handle holds the point."""
+    from ..parallel import context
+
+    mesh = context.get_mesh()
+    if mesh is None or mesh.size <= 1:
+        return start_local(scalars_canonical, px, py, pinf)
+    from ..parallel import msm_dist
+
+    pad = -px.shape[1] % mesh.size
+    if pad:
+        scalars_canonical = torch.cat([scalars_canonical,
+                                       scalars_canonical.new_zeros(F.FR_L, pad)], 1)
+        px = torch.cat([px, px.new_zeros(px.shape[0], pad)], 1)
+        py = torch.cat([py, py.new_zeros(py.shape[0], pad)], 1)
+        pinf = torch.cat([pinf, pinf.new_ones(pad)])
+    return Done(msm_dist.msm_dist(scalars_canonical, px, py, pinf, mesh))
+
+
+def finish_rows(handle):
+    """The jacobian [3, 24] rows (Montgomery limbs, CPU) of a local MSM."""
+    finish = MA.g1_msm_finish if isinstance(handle, MA.Handle) else K.g1_msm_finish
+    return finish(handle)
+
+
+def rows_jacobian(rows):
+    """[3, 24] jacobian Montgomery rows -> host jacobian (X, Y, Z) ints."""
+    return tuple(int(F.unpack_fq(rows[i].reshape(24, 1))[0]) for i in range(3))
 
 
 def msm_finish(handle):
     from ..host.curve import G1
 
-    finish = MA.g1_msm_finish if isinstance(handle, MA.Handle) else K.g1_msm_finish
-    rows = finish(handle)  # [3, 24]
-    X, Y, Z = (int(F.unpack_fq(rows[i].reshape(24, 1))[0]) for i in range(3))
-    return G1.to_affine((X, Y, Z))
+    if isinstance(handle, Done):
+        return handle.point
+    return G1.to_affine(rows_jacobian(finish_rows(handle)))
 
 
 def msm(scalars_canonical, px, py, pinf):

@@ -15,8 +15,10 @@ The 1/n is applied inside the kernel as it stores; a coset is one
 elementwise Fr product (K1) by the table of c^j before a forward transform,
 or of c^-j after an inverse one.
 
-The JAX package's mesh branch (a sharded transform) waits for the
-multi-device slice of the port.
+Under a mesh (`parallel.context.use_mesh`) of more than one rank, `bintt`
+of a grid whose axes both divide by the mesh size runs sharded
+(`parallel.ntt_dist`), with the coset scalings as K1 products of the whole
+grid outside the dist transform.
 """
 
 from __future__ import annotations
@@ -80,11 +82,52 @@ def bintt(grid, inverse: bool = False, coset_x: int | None = None,
           coset_y: int | None = None):
     """Bivariate NTT of a `[16, x_size, y_size]` grid: along Y (rows batched
     over X), then along X (columns batched over Y) -- the reference's
-    `_biNTT`."""
+    `_biNTT`.  Under an active mesh that splits the grid evenly, the
+    transform runs on `parallel.ntt_dist` from this rank's rows, and every
+    rank gets the whole grid back."""
     _, x_size, y_size = grid.shape
+    mesh = _active_mesh(x_size, y_size)
+    if mesh is not None:
+        from ..parallel import ntt_dist
+        from ..parallel.mesh import row_slice
+
+        cx = coset_x if (coset_x is not None and coset_x % R_MOD != 1) else None
+        cy = coset_y if (coset_y is not None and coset_y % R_MOD != 1) else None
+        if not inverse:
+            grid = _coset_scale(grid, cx, cy, inverse=False)
+        grid = ntt_dist.bintt_dist(grid[:, row_slice(mesh, x_size)], mesh, inverse=inverse)
+        if inverse:
+            grid = _coset_scale(grid, cx, cy, inverse=True)
+        return grid
     grid = grid.contiguous()
     if y_size > 1:
         grid = ntt_axis(grid, 2, inverse, coset_y)
     if x_size > 1:  # over the Y pass's own output, if there was one
         grid = ntt_axis(grid, 1, inverse, coset_x, inplace=y_size > 1)
     return grid
+
+
+def _active_mesh(x_size: int, y_size: int):
+    """The context mesh, if it has more than one rank and the grid can be
+    split by rows and by columns on it."""
+    from ..parallel import context
+
+    mesh = context.get_mesh()
+    if mesh is None or mesh.size <= 1 or x_size % mesh.size or y_size % mesh.size:
+        return None
+    return mesh
+
+
+def _coset_scale(grid, coset_x, coset_y, inverse: bool):
+    """Coset pre- (forward) or post-scaling (inverse) of a [16, x, y] grid:
+    element (i, j) times c_x^i c_y^j, or their inverses; the same products
+    as `ntt_axis`'s per-pass scaling."""
+    L, x_size, y_size = grid.shape
+    flat = grid.reshape(L, -1).contiguous()
+    if coset_y is not None:
+        cy = pow(coset_y, -1, R_MOD) if inverse else coset_y % R_MOD
+        flat = K.fr_mul(flat, _coset_table(y_size, cy, grid.device))
+    if coset_x is not None:
+        cx = pow(coset_x, -1, R_MOD) if inverse else coset_x % R_MOD
+        flat = K.fr_mul(flat, _coset_table(x_size, cx, grid.device), rep=y_size)
+    return flat.reshape(grid.shape)
