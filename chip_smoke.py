@@ -12,10 +12,10 @@ Phases, in order (any mismatch or exception exits non-zero):
      and stack frame, and require that the MSM build reports exactly its
      three stage kernels (the bucket sum's two passes and the window
      reduce), the NTT build its pass kernel, the G1 build its fixed-base
-     kernel, the G1 ops build B13's three (add, doubling, to-affine), the
-     inversion build its six (three a field) and the scan build B6's three
-     (tile totals, their scan, the tiles), each with no stack frame and no
-     spills;
+     kernel, the G1 ops build B13's three (add, doubling, to-affine) and
+     the four probes of `utils/bench_g1.py`, the inversion build its six
+     (three a field) and the scan build B6's three (tile totals, their
+     scan, the tiles), each with no stack frame and no spills;
   3. each kernel against its plain PyTorch version on the card, exact:
      K1 on Fr and Fq batches holding 0, 1 and p-1; K2's inversion at 1 and
      4096 elements and its batch inversion at 1, 2, its one-launch width
@@ -80,7 +80,11 @@ Phases, in order (any mismatch or exception exits non-zero):
      then the CLI's `mpc` steps at the same shape through files (one
      contributor a phase, secure rng), preprocess, prove --deterministic
      and verify (true) on the ceremony's CRS.  Counters set to 0 before,
-     read after: B13's kernels, K1, K2 and K4's MSM stages must launch;
+     read after: B13's kernels, K1, K2 and K4's MSM stages must launch.
+     Every B13 add and doubling of the phase is recorded: its lane width
+     (calls and lane-launches by power of two) and its device time (two
+     CUDA events around each launch), beside the IMAD bound; and B13's
+     device seconds in each step, beside the step's wall time;
   5f. the multi-device path (`parallel/`; the card machine has one GPU, and
      NCCL refuses two ranks on one card): (i) a one-rank NCCL group, on
      which `bintt_dist` at 16384 x 512, forward and inverse, must equal
@@ -145,7 +149,8 @@ PTXAS_CLEAN = {
     "msm": ("bucket_sum_kernel_affine", "bucket_sum_kernel_jacobian", "window_reduce_kernel"),
     "ntt": ("ntt_pass_kernel",),
     "g1": ("fixed_base_kernel",),
-    "g1_ops": ("g1_add_kernel", "g1_dbl_kernel", "g1_affine_kernel"),
+    "g1_ops": ("g1_add_kernel", "g1_dbl_kernel", "g1_affine_kernel", "g1_probe_io_add",
+               "g1_probe_io_dbl", "g1_probe_math_add", "g1_probe_math_dbl"),
     "field_inv": tuple(f"{k}_{f}" for k in ("inv_kernel", "binv_up", "binv_down")
                        for f in ("fr", "fq")),
     "fr_scan": ("scan_up", "scan_top", "scan_tile"),
@@ -908,12 +913,14 @@ def family_points(sigma) -> int:
                 "delta_inv_li_o_prv"))
 
 
-def drive_ceremony(torch, np, dev, fx):
+def drive_ceremony(torch, np, dev, fx, b13=None):
     """Phase 5e, in process: the ceremony of `tests/test_mpc_setup.py`'s end
     gate at the synthetic full shape on the card (seeded rngs: the secrets
     are replayed from a second copy of each), every step verified; the
     result against `generate_sigma` for the combined secrets; two tampered
-    Sigmas rejected.  -> seconds by stage."""
+    Sigmas rejected.  -> seconds by stage.  With `b13` ({"events": the list
+    `recording` fills, "steps": {}}), each stage's B13 device seconds go
+    into b13["steps"]."""
     import shutil
     import tempfile
 
@@ -926,10 +933,13 @@ def drive_ceremony(torch, np, dev, fx):
     p, t = fx.params, {}
 
     def timed(name, fn):
+        lo = len(b13["events"]) if b13 else 0
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         t[name] = time.perf_counter() - t0
+        if b13:
+            b13["steps"][name] = b13_seconds(b13["events"], lo)
         return out
 
     acc = M.Phase1Accumulator.initial(p)
@@ -1005,13 +1015,13 @@ def drive_ceremony(torch, np, dev, fx):
     return t
 
 
-def drive_ceremony_files(torch, dev, fx):
+def drive_ceremony_files(torch, dev, fx, b13=None):
     """Phase 5e through files: the port's CLI in this process, `mpc`
     phase1-init, phase1-contribute, phase1-verify (true), phase2-prepare,
     phase2-contribute (one contributor a phase, secure rng), then
     preprocess, prove --deterministic and verify (true) on the ceremony's
     CRS, in a scratch directory under the checkout's `.cache/`, deleted at
-    the end.  -> seconds by stage."""
+    the end.  -> seconds by stage; `b13` as for `drive_ceremony`."""
     import io
     import shutil
     import tempfile
@@ -1057,10 +1067,13 @@ def drive_ceremony_files(torch, dev, fx):
         )
         rcs = {}
         for name, argv in stages:
+            lo = len(b13["events"]) if b13 else 0
             t0 = time.perf_counter()
             rcs[name] = run(argv)
             torch.cuda.synchronize()
             t[name] = time.perf_counter() - t0
+            if b13:
+                b13["steps"][name] = b13_seconds(b13["events"], lo)
         log(f"  phase-1 JSON: {os.path.getsize(f('acc1.json'))} B; ceremony CRS npy: "
             f"{sum(os.path.getsize(os.path.join(f('crs1'), n)) for n in os.listdir(f('crs1')))} B")
         for name in ("mpc phase1-init", "mpc phase1-contribute", "mpc phase2-prepare",
@@ -1274,14 +1287,36 @@ def expect_launches(counts, ran, idle, path):
 
 
 @contextlib.contextmanager
-def recording(K):
+def recording(K, b13_events=None):
     """Record, inside the block, the distinct calls of K3 (grid shape, axis
-    and tables), the batch sizes of the fixed-base op, and the widths of the
+    and tables), the batch sizes of the fixed-base op, the widths of the
     batch inversions by power of two ({"Fq 2^k": calls of width in
-    (2^(k-1), 2^k]}), as the entry points make them (`ops` and the kernel
-    wrappers call all three through the module)."""
-    calls = {"ntt": {}, "fixed_base": set(), "batch_inv": {}}
+    (2^(k-1), 2^k]}) and those of B13's add and doubling ({"2^k": [calls,
+    lanes]}), as the entry points make them (`ops`, `models` and the kernel
+    wrappers call them through the module).  With a list `b13_events`, each
+    B13 add and doubling on the card is bracketed by two CUDA events,
+    appended as (op, "2^k", start, end)."""
+    import torch
+
+    calls = {"ntt": {}, "fixed_base": set(), "batch_inv": {}, "g1_add": {}, "g1_dbl": {}}
     fr_ntt, fixed_base, batch_inv = K.fr_ntt, K.g1_fixed_base, K.batch_inv
+    g1_add, g1_dbl = K.g1_add, K.g1_dbl
+
+    def wrap(op, fn):
+        def wrapped(p, *args, **kw):
+            n = int(p[0].shape[1])
+            key = f"2^{max(0, n - 1).bit_length()}"
+            c = calls[op].setdefault(key, [0, 0])
+            c[0], c[1] = c[0] + 1, c[1] + n
+            if b13_events is None or not p[0].is_cuda:
+                return fn(p, *args, **kw)
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(p, *args, **kw)
+            e.record()
+            b13_events.append((op, key, s, e))
+            return out
+        return wrapped
 
     def ntt(data, pows, scale=None, axis=2, inplace=False):
         key = (tuple(data.shape), axis, inplace) + tuple(
@@ -1299,10 +1334,41 @@ def recording(K):
         return batch_inv(field, a)
 
     K.fr_ntt, K.g1_fixed_base, K.batch_inv = ntt, fixed, binv
+    K.g1_add, K.g1_dbl = wrap("g1_add", g1_add), wrap("g1_dbl", g1_dbl)
     try:
         yield calls
     finally:
         K.fr_ntt, K.g1_fixed_base, K.batch_inv = fr_ntt, fixed_base, batch_inv
+        K.g1_add, K.g1_dbl = g1_add, g1_dbl
+
+
+def b13_seconds(events, lo=0):
+    """{"g1_add": s, "g1_dbl": s}: device seconds of the B13 launches in
+    events[lo:] (their events must have completed)."""
+    out = {"g1_add": 0.0, "g1_dbl": 0.0}
+    for op, _, s, e in events[lo:]:
+        out[op] += s.elapsed_time(e) / 1e3
+    return out
+
+
+def b13_widths(calls, events):
+    """B13's add and doubling on a recorded path: for each, calls and lanes
+    by power-of-two width with their device ms and IMAD bound ms, and the
+    totals."""
+    per_lane = {"g1_add": JAC_ADD_MULS * FQ_MUL_OPS / IMAD_PER_S,
+                "g1_dbl": DBL_MULS * FQ_MUL_OPS / IMAD_PER_S}
+    ms = {}
+    for op, key, s, e in events:
+        ms[(op, key)] = ms.get((op, key), 0.0) + s.elapsed_time(e)
+    out = {}
+    for op in ("g1_add", "g1_dbl"):
+        rows = {key: [c, n, round(ms.get((op, key), 0.0), 4), round(n * per_lane[op] * 1e3, 4)]
+                for key, (c, n) in sorted(calls[op].items(), key=lambda kv: int(kv[0][2:]))}
+        out[op] = {"by_width": rows, "calls": sum(r[0] for r in rows.values()),
+                   "lanes": sum(r[1] for r in rows.values()),
+                   "device_s": round(sum(r[2] for r in rows.values()) / 1e3, 4),
+                   "imad_bound_s": round(sum(r[3] for r in rows.values()) / 1e3, 4)}
+    return out
 
 
 def rand_fr(torch, shape, seed, dev):
@@ -1957,14 +2023,28 @@ def main() -> int:
         f"CLI's mpc steps through files ({gpu_line()})")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K.reset_counts()
-    t_e = drive_ceremony(torch, np, dev, fx)
-    t_e.update(drive_ceremony_files(torch, dev, fx))
-    counts_e = K.counts()
+    b13_e = {"events": [], "steps": {}}
+    with recording(K, b13_e["events"]) as calls_e:
+        K.reset_counts()
+        t_e = drive_ceremony(torch, np, dev, fx, b13_e)
+        t_e.update(drive_ceremony_files(torch, dev, fx, b13_e))
+        counts_e = K.counts()
     peak_e = torch.cuda.max_memory_allocated()
     log("  seconds: " + json.dumps({k: round(v, 3) for k, v in t_e.items()}))
     log("  kernels " + json.dumps(counts_e))
     log(f"  peak device memory {peak_e / 2**30:.3f} GiB")
+    widths_e = b13_widths(calls_e, b13_e["events"])
+    for op in ("g1_add", "g1_dbl"):
+        log(f"  {op} by width (calls, lanes, device ms, IMAD bound ms): "
+            + json.dumps(widths_e[op]["by_width"]))
+        w = widths_e[op]
+        log(f"  {op}: {w['calls']} calls, {w['lanes']} lane-launches, {w['device_s']:.4f} "
+            f"device s (IMAD bound {w['imad_bound_s']:.4f} s)")
+    for name, b in b13_e["steps"].items():
+        if b["g1_add"] + b["g1_dbl"] > 0:
+            log(f"  {name}: wall {t_e[name]:.3f} s, B13 device add {b['g1_add']:.4f} s, "
+                f"doubling {b['g1_dbl']:.4f} s")
+    del b13_e
     expect_launches(counts_e, b13 + [K.FR_EW.name, K.FQ_EW.name, K.FIELD_INV.name,
                                      K.BATCH_INV.name, K.MSM_BUCKET_SUM.name, K.MSM_WINDOW.name],
                     [], "ceremony path (5e)")
@@ -1987,6 +2067,8 @@ def main() -> int:
     for kern in (K.FIELD_INV, K.BATCH_INV, K.FR_SCAN, K.G1_TO_AFFINE):
         next(r for r in rows if r["name"] == kern.name)["launches_5b"] = counts_b[kern.name]
     for r in rows:
+        if r["name"] in widths_e:
+            r["ceremony_5e"] = widths_e[r["name"]]
         r["launches_5d"] = counts_d[r["name"]]
         r["launches_5e"] = counts_e[r["name"]]
         r["launches_5f"] = [res["kernels"][r["name"]] for res in ranks_f]

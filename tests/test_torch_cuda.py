@@ -388,6 +388,51 @@ def test_b13_kernels_one_launch_raw_infinity(dev):
     assert _affine_jac(tuple(c[:, :60] for c in K.g1_add(P, Q2))) == want
 
 
+@pytest.mark.parametrize("width", [1, 127, 128, 129, 255, 257, (1 << 16) + 3])
+def test_b13_kernels_ragged_widths(dev, width):
+    """The add and the doubling at ragged widths (one lane, a block of 128
+    lanes +-1, two blocks +-1, 2^16 + 3), every case planted by lane: P+Q,
+    P+P, P+(-P), raw (0, 0, 0) infinity + Q, P + raw infinity, inf+inf, a
+    P with Y = 0 (off the curve) and P + (1, 1, 0); the add also with Q
+    broadcast at rep 1 and 4 from 7 lanes (which divide no width here but
+    1).  Each output == the plain version, word for word, one launch a
+    call."""
+    from tokamak_zk_evm_tpu_torch.fields import Q_MOD
+    from tokamak_zk_evm_tpu_torch.host.curve import g1_scalar_mul_affine
+    from tokamak_zk_evm_tpu_torch.ops import curve as TC
+
+    rng = np.random.default_rng(40)
+    base = [g1_scalar_mul_affine(G1.gen, int(k)) for k in rng.integers(1, 1 << 40, size=32)]
+    neg = [(x, (-y) % Q_MOD) for x, y in base]
+    bx, by, _ = TC.pack_affine(base + neg, dev)
+    lane = torch.arange(width, device=dev)
+    case = lane % 8
+    ip, iq = lane % 32, (lane * 7 + 3) % 32
+    iq = torch.where(case == 1, ip, torch.where(case == 2, ip + 32, iq))
+    one = K._FQ.one(dev).expand(K.FQ_L, width).to(torch.int32).contiguous()
+
+    def jac(idx):
+        return K.plain_g1_dbl((bx[:, idx].contiguous(), by[:, idx].contiguous(), one))
+
+    P, Q = list(jac(ip)), list(jac(iq))
+    zero = torch.zeros_like(one)
+    pick = lambda m, a, b: torch.where(m[None, :], a, b).contiguous()  # noqa: E731
+    raw_p, raw_q = (case == 3) | (case == 5), (case == 4) | (case == 5)
+    P = [pick(raw_p, zero, c) for c in P]
+    Q = [pick(raw_q, zero, c) for c in Q]
+    P[1] = pick(case == 6, zero, P[1])
+    Q = [pick(case == 7, o, c) for o, c in zip((one, one, zero), Q)]
+    P, Q = tuple(P), tuple(Q)
+    before = (K.G1_ADD.launches, K.G1_DBL.launches)
+    assert all(torch.equal(g, w) for g, w in zip(K.g1_add(P, Q), K.plain_g1_add(P, Q)))
+    assert all(torch.equal(g, w) for g, w in zip(K.g1_dbl(P), K.plain_g1_dbl(P)))
+    assert (K.G1_ADD.launches - before[0], K.G1_DBL.launches - before[1]) == (1, 1)
+    Qb = tuple(c[:, : min(7, width)].contiguous() for c in Q)
+    for rep in (1, 4):
+        got, want = K.g1_add(P, Qb, rep=rep), K.plain_g1_add(P, Qb, rep=rep)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def _mpc_points(n, seed, dev):
     from tokamak_zk_evm_tpu_torch.host.curve import g1_scalar_mul_affine
     from tokamak_zk_evm_tpu_torch.ops import curve as TC

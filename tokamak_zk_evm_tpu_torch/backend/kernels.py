@@ -13,8 +13,9 @@ A wrapper dispatches on the device of its tensor argument:
 
 The kernels (see each source's header for the TPU kernel it replaces, what
 bounds it on the card, and what its design does about that; K1 and K5 run
-on `csrc/field.cuh`'s arithmetic, K2, B6 and K3 on `fr_chain.cuh`'s and K2, K4
-and B13 on `fq_chain.cuh`'s carry chains):
+on `csrc/field.cuh`'s arithmetic, K2, B6 and K3 on `fr_chain.cuh`'s, K2, K4
+and B13's to-affine pass on `fq_chain.cuh`'s carry chains, and B13's add and
+doubling on `g1_lazy.cuh`'s):
 
   K1 csrc/field_ew.cu   FR_EW / FQ_EW    add, sub, mul, neg
   K2 csrc/field_inv.cu  FIELD_INV        inversion, an extended gcd a thread
