@@ -75,10 +75,6 @@ def constant(src, name):
     return int(re.search(rf"{name}\s*=\s*(\d+)", src).group(1))
 
 
-def define(src, name):
-    return int(re.search(rf"#define {name} (\d+)", src).group(1))
-
-
 ADD_PROG, DBL_PROG = program("G1_ADD_PROGRAM"), program("G1_DBL_PROGRAM")
 LAZY = read("g1_lazy.cuh")
 SLOTS = {k: constant(LAZY, k) for k in ("ADD_SLOTS", "ADD_X3", "ADD_Y3", "ADD_Z3", "ADD_H",
@@ -503,9 +499,11 @@ def test_source_constants():
     assert sum(op in ("MUL", "SQR") for op, *_ in DBL_PROG) == 7
     assert [op for op, *_ in ADD_PROG].count("SQR") == 4
     assert [op for op, *_ in DBL_PROG].count("SQR") == 5
-    # a block's slots fit the SM's shared memory at the launch bounds' blocks
-    T = define(ops, "G1_THREADS")
+    # a block's slots fit the 48 KB a launch takes without opting in, and the
+    # SM's shared memory at the launch bounds' blocks
+    T = constant(ops, "int T")
     assert T % 32 == 0
-    for slots, blocks in ((SLOTS["ADD_SLOTS"], define(ops, "G1_ADD_BLOCKS")),
-                          (SLOTS["DBL_SLOTS"], define(ops, "G1_DBL_BLOCKS"))):
+    for slots, blocks in ((SLOTS["ADD_SLOTS"], constant(ops, "ADD_BLOCKS")),
+                          (SLOTS["DBL_SLOTS"], constant(ops, "DBL_BLOCKS"))):
+        assert slots * 12 * T * 4 <= 48 * 1024
         assert blocks * (slots * 12 * T * 4 + 1024) <= 228 * 1024

@@ -92,14 +92,13 @@ def _paths(name: str) -> tuple[str, str, str]:
             os.path.join(BUILD_DIR, f"{name}.log"))
 
 
-def _newest_source() -> float:
-    return max(os.path.getmtime(os.path.join(CSRC, f))
-               for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh")))
-
-
 def _fresh(name: str) -> bool:
-    so = _paths(name)[1]
-    return os.path.exists(so) and os.path.getmtime(so) >= _newest_source()
+    src, so, _ = _paths(name)
+    if not os.path.exists(so):
+        return False
+    newest = max(os.path.getmtime(os.path.join(CSRC, f))
+                 for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh")))
+    return os.path.getmtime(so) >= max(newest, os.path.getmtime(src))
 
 
 def built() -> dict[str, bool]:
@@ -123,20 +122,10 @@ def _tmp(path: str) -> str:
     return f"{path}.{os.getpid()}.tmp"
 
 
-def _command(name: str, so: str | None = None, defines=()) -> list[str]:
-    src, default_so, _ = _paths(name)
+def _command(name: str) -> list[str]:
+    src, so, _ = _paths(name)
     return [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", _tmp(so or default_so),
-            *[f"-D{d}" for d in defines], src]
-
-
-def _bind(path: str, name: str) -> ctypes.CDLL:
-    handle = ctypes.CDLL(path)
-    for entry, argtypes in SIGNATURES[name].items():
-        fn = getattr(handle, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return handle
+            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", _tmp(so), src]
 
 
 def build_all(names=None) -> dict[str, float]:
@@ -182,30 +171,13 @@ def lib(name: str) -> ctypes.CDLL:
         if hit is not None:
             return hit
         build_all([name])
-        handle = _LIBS[name] = _bind(_paths(name)[1], name)
+        handle = ctypes.CDLL(_paths(name)[1])
+        for entry, argtypes in SIGNATURES[name].items():
+            fn = getattr(handle, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIBS[name] = handle
         return handle
-
-
-def variant(name: str, defines) -> ctypes.CDLL:
-    """Library `name` built with extra `-D` flags (e.g. "G1_ADD_BLOCKS=3")
-    into `build/variants/`, one file a set of flags, and bound like `lib`:
-    for benches that compare build settings.  The ops never load one."""
-    import hashlib
-
-    defines = sorted(defines)
-    tag = hashlib.sha1(" ".join(defines).encode()).hexdigest()[:12]
-    so = os.path.join(BUILD_DIR, "variants", f"lib{name}_{tag}.so")
-    with build_lock():
-        if not (os.path.exists(so) and os.path.getmtime(so) >= _newest_source()):
-            os.makedirs(os.path.dirname(so), exist_ok=True)
-            with open(so[:-3] + ".log", "w") as log:
-                rc = subprocess.run(_command(name, so, defines), stdout=log,
-                                    stderr=subprocess.STDOUT).returncode
-            if rc != 0:
-                with open(so[:-3] + ".log") as log:
-                    raise RuntimeError(f"nvcc failed for {name} {defines}:\n{log.read()[-4000:]}")
-            os.replace(_tmp(so), so)
-    return _bind(so, name)
 
 
 def call(name: str, entry: str, *args) -> None:

@@ -22,7 +22,7 @@
 //     300.  Every chain keeps a limb product's lo and hi words adjacent, so
 //     ptxas fuses the pair into one IMAD.WIDE.U32.X; a first squaring with
 //     separate lo and hi chains (two SASS instructions a half) was slower
-//     than `mul(a, a)` (utils/bench_g1.py, `--define G1_SQR_BY_MUL=1`);
+//     than `mul(a, a)` when timed with utils/bench_g1.py on an H100;
 //   * `add` / `sub`: modulo 2q (one conditional subtract of 2q, or an add of
 //     2q after a borrow);
 //   * `reduce`: [0, 2q) -> [0, q), one conditional subtract of q.
@@ -345,11 +345,7 @@ __device__ __forceinline__ void run(const Slots& S, const Prog& P, int begin, in
     fe x, y, r;
     S.load(x, st.a);
     if (st.op == SQR) {
-#ifdef G1_SQR_BY_MUL
-      mul(r, x, x);
-#else
       sqr(r, x);
-#endif
     } else {
       S.load(y, st.b);
       if (st.op == MUL) mul(r, x, y);

@@ -47,8 +47,9 @@
 //     and 5 of the doubling's 7);
 //   * with the points out of registers a thread needs at most 128 registers
 //     (the doubling 89), so the add runs four blocks an SM and the doubling
-//     five; the launch bounds' sweep (64-256 threads a block, 2-10 blocks an
-//     SM) stayed within 5% of these.  The loads are staged into the slots at
+//     five (T, ADD_BLOCKS and DBL_BLOCKS below); a sweep of block sizes
+//     64-256 and of 2-10 blocks an SM, timed with utils/bench_g1.py on an
+//     H100, stayed within 5% of these.  The loads are staged into the slots at
 //     the start, coalesced (lane i at column i), and not overlapped by hand:
 //     the SM's other warps cover them (the add 2.67 ms against 2.49 ms of
 //     arithmetic alone and 1.26 ms of loads and stores alone, the doubling
@@ -61,16 +62,6 @@
 // products with carries that a 381-bit Montgomery product needs.
 #include "g1_lazy.cuh"
 
-#ifndef G1_THREADS
-#define G1_THREADS 128
-#endif
-#ifndef G1_ADD_BLOCKS
-#define G1_ADD_BLOCKS 4
-#endif
-#ifndef G1_DBL_BLOCKS
-#define G1_DBL_BLOCKS 5
-#endif
-
 extern __shared__ uint32_t sm[];
 
 namespace {
@@ -78,13 +69,17 @@ namespace {
 using fqc::fe;
 using fqc::N;
 
-constexpr int T = G1_THREADS;  // threads (lanes) a block
+constexpr int T = 128;         // threads (lanes) a block
+constexpr int ADD_BLOCKS = 4;  // blocks an SM: the add's launch bounds (128 registers)
+constexpr int DBL_BLOCKS = 5;  // the doubling's (89 registers)
 constexpr fql::Step kAddSteps[] = {G1_ADD_PROGRAM};
 constexpr fql::Step kDblSteps[] = {G1_DBL_PROGRAM};
 constexpr int ADD_STEPS = sizeof(kAddSteps) / sizeof(fql::Step);
 constexpr int DBL_STEPS = sizeof(kDblSteps) / sizeof(fql::Step);
 constexpr int ADD_SMEM = fql::ADD_SLOTS * N * T * 4;  // bytes a block
 constexpr int DBL_SMEM = fql::DBL_SLOTS * N * T * 4;
+// within the 48 KB a launch may take without opting in
+static_assert(ADD_SMEM <= 48 * 1024 && DBL_SMEM <= 48 * 1024, "slots past 48 KB a block");
 
 // the add's program, then the doubling's at ADD_STEPS
 __constant__ fql::Step kProg[ADD_STEPS + DBL_STEPS] = {G1_ADD_PROGRAM, G1_DBL_PROGRAM};
@@ -193,7 +188,7 @@ __device__ __forceinline__ long long q_lane(long long i, long long B, long long 
   return (i / rep) % Bq;
 }
 
-__global__ void __launch_bounds__(T, G1_ADD_BLOCKS)
+__global__ void __launch_bounds__(T, ADD_BLOCKS)
 g1_add_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
               const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
               const int32_t* __restrict__ y2, const int32_t* __restrict__ z2, long long Bq,
@@ -239,7 +234,7 @@ g1_add_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
   put(S, sx, sy, sz, ox, oy, oz, i, B);
 }
 
-__global__ void __launch_bounds__(T, G1_DBL_BLOCKS)
+__global__ void __launch_bounds__(T, DBL_BLOCKS)
 g1_dbl_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
               const int32_t* __restrict__ z, int32_t* ox, int32_t* oy, int32_t* oz, long long B) {
   const long long i = (long long)blockIdx.x * T + threadIdx.x;
@@ -283,7 +278,7 @@ g1_affine_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
 //     the slots from the lane index (no loads; Z != 0 and H != 0, so every
 //     lane takes the generic formula), one word stored a lane.
 
-__global__ void __launch_bounds__(T, G1_ADD_BLOCKS)
+__global__ void __launch_bounds__(T, ADD_BLOCKS)
 g1_probe_io_add(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
                 const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
                 const int32_t* __restrict__ y2, const int32_t* __restrict__ z2, long long Bq,
@@ -305,7 +300,7 @@ g1_probe_io_add(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
   }
 }
 
-__global__ void __launch_bounds__(T, G1_DBL_BLOCKS)
+__global__ void __launch_bounds__(T, DBL_BLOCKS)
 g1_probe_io_dbl(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
                 const int32_t* __restrict__ z, int32_t* ox, int32_t* oy, int32_t* oz, long long B) {
   const long long i = (long long)blockIdx.x * T + threadIdx.x;
@@ -350,7 +345,7 @@ __device__ __forceinline__ uint32_t fold(const SmemSlots& S, int sx, int sy, int
   return h;
 }
 
-__global__ void __launch_bounds__(T, G1_ADD_BLOCKS) g1_probe_math_add(int32_t* out, long long B) {
+__global__ void __launch_bounds__(T, ADD_BLOCKS) g1_probe_math_add(int32_t* out, long long B) {
   const long long i = (long long)blockIdx.x * T + threadIdx.x;
   if (i >= B) return;
   const SmemSlots S{sm + threadIdx.x};
@@ -360,7 +355,7 @@ __global__ void __launch_bounds__(T, G1_ADD_BLOCKS) g1_probe_math_add(int32_t* o
   out[i] = (int32_t)fold(S, fql::ADD_X3, fql::ADD_Y3, fql::ADD_Z3);
 }
 
-__global__ void __launch_bounds__(T, G1_DBL_BLOCKS) g1_probe_math_dbl(int32_t* out, long long B) {
+__global__ void __launch_bounds__(T, DBL_BLOCKS) g1_probe_math_dbl(int32_t* out, long long B) {
   const long long i = (long long)blockIdx.x * T + threadIdx.x;
   if (i >= B) return;
   const SmemSlots S{sm + threadIdx.x};
@@ -371,29 +366,6 @@ __global__ void __launch_bounds__(T, G1_DBL_BLOCKS) g1_probe_math_dbl(int32_t* o
 
 unsigned nblocks(long long n, int t) { return (unsigned)((n + t - 1) / t); }
 
-// shared memory past 48 KB, and the largest carveout, once a kernel
-template <class K>
-int smem_attrs(K kernel, int bytes) {
-  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == 0)
-    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                    (int)cudaSharedmemCarveoutMaxShared);
-  return err;
-}
-
-int setup() {
-  static int err = -1;
-  if (err < 0) {
-    err = smem_attrs(g1_add_kernel, ADD_SMEM);
-    if (err == 0) err = smem_attrs(g1_dbl_kernel, DBL_SMEM);
-    if (err == 0) err = smem_attrs(g1_probe_io_add, ADD_SMEM);
-    if (err == 0) err = smem_attrs(g1_probe_io_dbl, DBL_SMEM);
-    if (err == 0) err = smem_attrs(g1_probe_math_add, ADD_SMEM);
-    if (err == 0) err = smem_attrs(g1_probe_math_dbl, DBL_SMEM);
-  }
-  return err;
-}
-
 }  // namespace
 
 // out[i] = p[i] + q[Bq == B ? i : (i / rep) % Bq] for i < B; every pointer a
@@ -403,7 +375,6 @@ extern "C" int tzk_g1_add(const void* x1, const void* y1, const void* z1, const 
                           void* oy, void* oz, long long B, void* stream) {
   if (B <= 0) return 0;
   if (Bq <= 0 || rep <= 0) return (int)cudaErrorInvalidValue;
-  if (int err = setup()) return err;
   g1_add_kernel<<<nblocks(B, T), T, ADD_SMEM, (cudaStream_t)stream>>>(
       (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)z1, (const int32_t*)x2,
       (const int32_t*)y2, (const int32_t*)z2, Bq, rep, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, B);
@@ -413,7 +384,6 @@ extern "C" int tzk_g1_add(const void* x1, const void* y1, const void* z1, const 
 extern "C" int tzk_g1_dbl(const void* x, const void* y, const void* z, void* ox, void* oy,
                           void* oz, long long B, void* stream) {
   if (B <= 0) return 0;
-  if (int err = setup()) return err;
   g1_dbl_kernel<<<nblocks(B, T), T, DBL_SMEM, (cudaStream_t)stream>>>(
       (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (int32_t*)ox, (int32_t*)oy,
       (int32_t*)oz, B);
@@ -439,7 +409,6 @@ extern "C" int tzk_g1_probe(int which, const void* x1, const void* y1, const voi
                             long long rep, void* ox, void* oy, void* oz, long long B,
                             void* stream) {
   if (B <= 0) return 0;
-  if (int err = setup()) return err;
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned g = nblocks(B, T);
   if (which == 0)

@@ -2,16 +2,16 @@
 
     python -m tokamak_zk_evm_tpu_torch.utils.bench_ceremony
 
-Run from the root of a checkout.  Imports that checkout's `chip_smoke.py`
-and runs its phase 5e functions once, after building every kernel: the
+Builds every kernel, then runs `utils/ceremony_drive.py` once: the
 ceremony in process with seeded rngs (`drive_ceremony`: phase-1 compute and
 verify, phase-2 prepare, contribute and verify, the check against
 `generate_sigma`, two tampered Sigmas) and through the CLI's files
 (`drive_ceremony_files`: the `mpc` steps, then preprocess, prove and
 verify).  Prints one JSON line of seconds by step (host clock, each step
-ending in a synchronize), then the card's name and power limit.  To compare
-two trees on one card, run it from each checkout in turns.  Needs a
-CUDA device.
+ending in a synchronize), then the card's name and power limit.  The package
+timed is the one imported.  To compare two trees on one card, run it from
+each checkout in turns (a tree without `ceremony_drive.py` takes a copy of
+this one's).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ from __future__ import annotations
 import json
 import os
 import subprocess
-import sys
 import time
 
 
@@ -29,21 +28,21 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("bench_ceremony needs a CUDA device")
-    sys.path.insert(0, os.getcwd())
-    import chip_smoke as C
 
     from ..backend import build
+    from . import ceremony_drive as CD
 
     t0 = time.perf_counter()
     build.build_all()
     built = time.perf_counter() - t0
     dev = torch.device("cuda")
-    fx = C.synthetic_fixture()
+    fx = CD.synthetic_fixture()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t = C.drive_ceremony(torch, np, dev, fx)
-    t.update(C.drive_ceremony_files(torch, dev, fx))
-    print(json.dumps({"tree": os.getcwd(), "build_s": built,
+    t = CD.drive_ceremony(torch, np, dev, fx)
+    t.update(CD.drive_ceremony_files(torch, dev, fx))
+    tree = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    print(json.dumps({"tree": tree, "build_s": built,
                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "seconds": t}),
           flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

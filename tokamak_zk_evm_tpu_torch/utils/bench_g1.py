@@ -1,6 +1,6 @@
 """Time B13's add and doubling kernels on the card, and split their time.
 
-    python -m tokamak_zk_evm_tpu_torch.utils.bench_g1 [--sass] [--define NAME=VALUE ...]
+    python -m tokamak_zk_evm_tpu_torch.utils.bench_g1 [--sass]
 
 At widths 2^10, 2^14, 2^18, 2^22 and 4,147,200 lanes (the ceremony's
 widest multiplication: delta_inv_li_o_prv, (m_D - l_D) s_max lanes of the
@@ -19,14 +19,10 @@ squarings: 4 of the add's, 5 of the doubling's, 468 operations each).
 (a) near (b) + (c) says the loads' waits are not hidden; (a) near
 max(b, c) says they are.  The probes live in `csrc/g1_ops.cu`
 (`tzk_g1_probe`); on a tree whose source has none, (b) and (c) are left
-out.  --define builds `g1_ops.cu` with those macros (`G1_THREADS`,
-`G1_ADD_BLOCKS`, `G1_DBL_BLOCKS`: the block size and the launch bounds;
-`G1_SQR_BY_MUL`: squarings as products) into `build/variants/` and times
-that build instead.  Checks (a) against
-the plain versions at the narrowest width first.  Prints one JSON line a
-width, with --sass the kernels' SASS instructions by opcode (cuobjdump),
-and a last line with the card's name and power limit.  Needs a CUDA
-device.
+out.  Checks (a) against the plain versions at the narrowest width first.
+Prints one JSON line a width, with --sass the kernels' SASS instructions
+by opcode (cuobjdump), and a last line with the card's name and power
+limit.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -70,9 +66,6 @@ def sass_histogram(lib_path: str) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description="time and split B13's add and doubling")
     ap.add_argument("--sass", action="store_true", help="print SASS opcode counts")
-    ap.add_argument("--define", action="append", default=[], metavar="NAME=VALUE",
-                    help="build g1_ops.cu with -DNAME=VALUE into build/variants/ and time "
-                         "that build (repeatable)")
     ap.add_argument("--max-log", type=int, default=22, help="widest power of two timed")
     args = ap.parse_args()
 
@@ -86,7 +79,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("bench_g1 needs a CUDA device")
     dev = torch.device("cuda")
-    lib = build.variant("g1_ops", args.define) if args.define else build.lib("g1_ops")
+    lib = build.lib("g1_ops")
     probes = hasattr(lib, "tzk_g1_probe")
     widths = [n for n in WIDTHS if n <= 1 << args.max_log]
 
@@ -145,7 +138,7 @@ def main() -> None:
             if not (ok and all(torch.equal(g, w) for g, w in zip(out, K.plain_g1_dbl(P)))):
                 raise SystemExit(f"bench_g1: kernel != plain at {n} lanes")
         reps = 50 if n <= 1 << 14 else 20 if n <= 1 << 18 else 5
-        row = {"n": n, "defines": args.define,
+        row = {"n": n,
                "add_ms": ms(lambda: add(P, Q, out), reps),
                "dbl_ms": ms(lambda: dbl(P, out), reps)}
         if probes:
