@@ -14,17 +14,19 @@ Phases, in order (any mismatch or exception exits non-zero):
      reduce), the NTT build its pass kernel, the G1 build its fixed-base
      kernel, the G1 ops build B13's three (add, doubling, to-affine) and
      the four probes of `utils/bench_g1.py`, the inversion build its six
-     (three a field) and the scan build B6's three (tile totals, their
-     scan, the tiles), each with no stack frame and no spills;
+     (three a field) and the scan build B6's one (`scan_kernel`: one pass,
+     a decoupled look-back), each with no stack frame and no spills;
   3. each kernel against its plain PyTorch version on the card, exact:
      K1 on Fr and Fq batches holding 0, 1 and p-1; K2's inversion at 1 and
      4096 elements and its batch inversion at 1, 2, its one-launch width
      +-1, a tile past it, 2^20 (Fr) and 2^22 (Fq), with zeros at tile and
      warp edges, and on all-zero batches, each also against host inverses
      (`pow`) on a sample, a * a^-1 == 1, and one launch or three; B6's
-     prefix and suffix scans at 1, 2, a tile +-1, two tiles + 1 and 2^20,
-     without zeros and with zeros at thread, warp and tile edges, and on
-     zeros alone, one launch or three; K3
+     prefix and suffix scans at 1, 2, a tile +-1, two tiles + 1, a group of
+     32 tiles + 1, 2^20 and past a look-back window of 32 groups, without
+     zeros and with zeros at thread, warp, tile and group edges, on zeros
+     alone, and called back to back (a width three times, then a smaller
+     and a larger one), one launch each; K3
      forward and inverse
      along both axes of a 16384 x 512 grid, on transforms past 16384 points
      (rows of 2^20, columns of 2^18), on a 2^23-point row and column (past
@@ -156,7 +158,7 @@ PTXAS_CLEAN = {
                "g1_probe_io_dbl", "g1_probe_math_add", "g1_probe_math_dbl"),
     "field_inv": tuple(f"{k}_{f}" for k in ("inv_kernel", "binv_up", "binv_down")
                        for f in ("fr", "fq")),
-    "fr_scan": ("scan_up", "scan_top", "scan_tile"),
+    "fr_scan": ("scan_kernel",),
 }
 
 
@@ -509,33 +511,55 @@ def check_inversion(torch, np, K, dev, rng):
 
 
 def check_scan(torch, K, dev):
-    """B6 against its plain version, prefix and suffix, exact: at widths on
-    both sides of one tile (one launch) and past it (three), without zeros,
-    with zeros at thread (8 positions), warp (256) and tile (1024) edges in
-    the second half of the scan order, and on zeros alone."""
+    """B6 against its plain version, prefix and suffix, exact, one launch a
+    call: at widths on both sides of one tile, past a group of 32 tiles and
+    past a look-back window of 32 groups, without zeros, with zeros at
+    thread (K positions), warp (32 K), tile and group edges in the second
+    half of the scan order, on zeros alone, and called back to back (the
+    same width three times, then a smaller and a larger one: no call may
+    read another's status records)."""
     from tokamak_zk_evm_tpu_torch.backend import build
 
-    tile = K.SCAN_TILE
+    tile, per, group = K.SCAN_TILE, K.SCAN_K, K.SCAN_GROUP * K.SCAN_TILE
     expect(build.lib("fr_scan").tzk_fr_scan_tile() == tile,
            f"fr_scan.cu's tile == kernels.SCAN_TILE ({tile})")
-    log("[3] B6 fr_scan: kernel == plain, exact")
-    for n in (1, 2, tile - 1, tile, tile + 1, 2 * tile + 1, 1 << 20):
+    log("[3] B6 fr_scan: kernel == plain, exact, one launch a call")
+
+    def edges(n, reverse):
+        return [e for b in range(0, n, tile)
+                for e in (b + per - 1, b + per, b + 32 * per - 1, b + 32 * per, b + tile - 1)
+                + ((b - 1, b) if b % group == 0 else ())
+                if 0 <= e < n and (e >= n // 2) != reverse]
+
+    def check(a, reverse, what):
+        before = K.FR_SCAN.launches
+        got = K.fr_scan(a, reverse)
+        launches = K.FR_SCAN.launches - before
+        expect(torch.equal(got, K.plain_fr_scan(a, reverse)) and launches == 1,
+               f"{'suffix' if reverse else 'prefix'} scan of {a.shape[1]} ({what}) == plain, "
+               f"{launches} launch(es)")
+
+    for n in (1, 2, tile - 1, tile, tile + 1, 2 * tile + 1, group + 1, 1 << 20,
+              33 * group + 5):
         base = rand_fr(torch, (n,), 40 + n % 97, dev)
         for reverse in (False, True):
-            edges = [e for b in range(0, n, tile) for e in (b + 7, b + 8, b + 255, b + 256,
-                                                            b + tile - 1)
-                     if e < n and (e >= n // 2) != reverse]
             zeroed = base.clone()
-            zeroed[:, edges] = 0
-            for a, what in ((base, "no zeros"), (zeroed, f"{len(edges)} zeros at edges")):
-                before = K.FR_SCAN.launches
-                got = K.fr_scan(a, reverse)
-                launches = K.FR_SCAN.launches - before
-                expect(torch.equal(got, K.plain_fr_scan(a, reverse))
-                       and launches == (1 if n <= tile else 3),
-                       f"{'suffix' if reverse else 'prefix'} scan of {n} ({what}) == plain, "
-                       f"{launches} launch(es)")
-        del base
+            zeroed[:, edges(n, reverse)] = 0
+            check(base, reverse, "no zeros")
+            check(zeroed, reverse, f"{len(edges(n, reverse))} zeros at edges")
+        del base, zeroed
+    widths = (40 * tile + 3,) * 3 + (tile + 1, 70 * group + 9)
+    calls = [(n, i % 2 == 1) for i, n in enumerate(widths)]
+    ins = [rand_fr(torch, (n,), 60 + i, dev) for i, (n, _) in enumerate(calls)]
+    before = K.FR_SCAN.launches
+    outs = [K.fr_scan(a, reverse) for a, (_, reverse) in zip(ins, calls)]
+    launches = K.FR_SCAN.launches - before
+    for i, (a, got, (n, reverse)) in enumerate(zip(ins, outs, calls)):
+        expect(torch.equal(got, K.plain_fr_scan(a, reverse)),
+               f"back-to-back call {i + 1} of {len(calls)} ({'suffix' if reverse else 'prefix'}, "
+               f"{n}) == plain")
+    expect(launches == len(calls), f"{len(calls)} back-to-back calls, {launches} launches")
+    del ins, outs
     z = torch.zeros((16, tile + 1), dtype=torch.int32, device=dev)
     expect(torch.equal(K.fr_scan(z), z) and torch.equal(K.fr_scan(z, True), z),
            f"scans of {tile + 1} zeros are zeros")

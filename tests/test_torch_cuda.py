@@ -80,24 +80,72 @@ def test_batch_inversion_widths(dev, field, width):
     assert torch.equal(got, K.plain_batch_inv(field, a))
 
 
-@pytest.mark.parametrize("width", ["1", "tile-1", "tile", "tile+1", "2^20"])
+def scan_input(n, seed, reverse, dev):
+    """n random Fr elements, with zeros at a thread's, a warp's, a tile's and
+    a group's edges (csrc/fr_scan.cu: K, 32 K, TILE and GROUP x TILE
+    positions) in the second half of the scan order (the first half's
+    outputs stay nonzero)."""
+    tile, per, group = K.SCAN_TILE, K.SCAN_K, K.SCAN_GROUP * K.SCAN_TILE
+    a = rand(FR, n + 1, seed, dev)[:, 1:].contiguous()
+    for b in range(0, n, tile):
+        for e in (b + per - 1, b + per, b + 32 * per - 1, b + 32 * per, b + tile - 1) + (
+                (b - 1, b) if b % group == 0 else ()):
+            if 0 <= e < n and (e >= n // 2) != reverse:
+                a[:, e] = 0
+    return a
+
+
+SCAN_WIDTHS = ("1", "tile-1", "tile", "tile+1", "33 tiles+1", "2^20")
+
+
+def scan_width(name):
+    tile = K.SCAN_TILE
+    return {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+            "33 tiles+1": 33 * tile + 1, "2^20": 1 << 20}[name]
+
+
+@pytest.mark.parametrize("width", SCAN_WIDTHS)
 @pytest.mark.parametrize("reverse", [False, True])
 def test_fr_scan_kernel(dev, reverse, width):
-    """B6 prefix and suffix against the plain scan, exact, one launch up to
-    a tile and three past it, with zeros at thread, warp and tile edges in
-    the second half of the scan order (the first half's outputs stay
-    nonzero)."""
-    tile = K.SCAN_TILE
-    n = {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1, "2^20": 1 << 20}[width]
-    a = rand(FR, n + 1, 5, dev)[:, 1:].contiguous()
-    for b in range(0, n, tile):
-        for e in (b + 7, b + 8, b + 255, b + 256, b + tile - 1):
-            if e < n and (e >= n // 2) != reverse:
-                a[:, e] = 0
+    """B6 prefix and suffix against the plain scan, exact, one launch at
+    every width (past a group of 32 tiles too), with zeros at thread, warp,
+    tile and group edges in the second half of the scan order."""
+    a = scan_input(scan_width(width), 5, reverse, dev)
     before = K.FR_SCAN.launches
     got = K.fr_scan(a, reverse)
-    assert K.FR_SCAN.launches - before == (1 if n <= tile else 3)
+    assert K.FR_SCAN.launches - before == 1
     assert torch.equal(got, K.plain_fr_scan(a, reverse))
+
+
+def test_fr_scan_back_to_back(dev):
+    """Calls of other widths and directions one after another on one stream,
+    each exact: no call reads the status records or the tile counter of
+    another."""
+    tile = K.SCAN_TILE
+    calls = [(40 * tile + 3, False), (40 * tile + 3, False), (40 * tile + 3, True),
+             (tile + 1, True), (3, False), (70 * tile, True), (33 * tile - 1, False)]
+    ins = [scan_input(n, 60 + i, rev, dev) for i, (n, rev) in enumerate(calls)]
+    outs = [K.fr_scan(a, rev) for a, (_, rev) in zip(ins, calls)]
+    for a, got, (n, rev) in zip(ins, outs, calls):
+        assert torch.equal(got, K.plain_fr_scan(a, rev)), (n, rev)
+
+
+def test_fr_scan_two_streams(dev):
+    """Two scans in flight at once on two streams, each exact."""
+    tile = K.SCAN_TILE
+    a = scan_input(50 * tile + 7, 70, False, dev)
+    b = scan_input(45 * tile + 1, 71, True, dev)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    s1.wait_stream(torch.cuda.current_stream())
+    s2.wait_stream(torch.cuda.current_stream())
+    for _ in range(3):
+        with torch.cuda.stream(s1):
+            ga = K.fr_scan(a)
+        with torch.cuda.stream(s2):
+            gb = K.fr_scan(b, True)
+    torch.cuda.synchronize()
+    assert torch.equal(ga, K.plain_fr_scan(a))
+    assert torch.equal(gb, K.plain_fr_scan(b, True))
 
 
 def test_dist_ops_nccl_world_one(dev, tmp_path):

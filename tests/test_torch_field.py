@@ -112,16 +112,20 @@ def test_scan_products_match_jax(which):
     assert np.array_equal(got, want)
 
 
-SCAN_ZEROS = (7, 8, 31, 32, 255, 256, 1023, 1024, 1025, 4096)  # thread, warp, tile edges
+# csrc/fr_scan.cu's edges: a thread's K = 8 positions, a warp's 32 K = 256, a
+# tile's 1024, a group's 32 tiles (32768), and a look-back window of 32 tiles
+# plus one
+SCAN_ZEROS = (7, 8, 255, 256, 1023, 1024, 1025, 4096, 32767, 32768, 33792)
 
 
 @pytest.mark.parametrize("zeros", [False, True])
-@pytest.mark.parametrize("width", [1, 2, 255, 256, 257, 4097, 1 << 14])
+@pytest.mark.parametrize("width", [1, 2, 255, 256, 257, 1023, 1025, 4097, 1 << 14, 33 * 1024 + 1])
 @pytest.mark.parametrize("which", ["prefix", "suffix"])
 def test_scan_widths_match_jax(which, width, zeros):
     """B6 (`fr_prefix_prod` / `fr_suffix_prod`) against the JAX package's
-    scan at widths on both sides of a thread's, a warp's and a tile's
-    positions (csrc/fr_scan.cu: 8, 256, 1024), with zeros planted there or
+    scan at widths on both sides of a thread's, a warp's, a tile's and a
+    group's positions and past a look-back window of 32 tiles
+    (csrc/fr_scan.cu: 8, 256, 1024, 32 x 1024), with zeros planted there or
     none (a zero zeroes every output past it)."""
     a = rand_limbs(FR, (width + 5,), 9 + width)[:, 5:].copy()  # no planted 0 / 1 first
     if zeros:
@@ -133,15 +137,18 @@ def test_scan_widths_match_jax(which, width, zeros):
 
 
 def test_scan_tile_matches_kernel_source():
-    """The wrapper's SCAN_TILE is the kernel's THREADS x K, and a CPU tensor
-    takes the plain version (no launch counted)."""
+    """The wrapper's SCAN_TILE, SCAN_K and SCAN_GROUP are the kernel's
+    THREADS x K, K and GROUP, and a CPU tensor takes the plain version (no
+    launch counted)."""
     import pathlib
     import re
 
     src = (pathlib.Path(K.__file__).parent / "csrc" / "fr_scan.cu").read_text()
     threads = int(re.search(r"constexpr int THREADS = (\d+);", src).group(1))
     per = int(re.search(r"constexpr int K = (\d+);", src).group(1))
+    group = int(re.search(r"constexpr int GROUP = (\d+);", src).group(1))
     assert threads * per == K.SCAN_TILE
+    assert (per, group) == (K.SCAN_K, K.SCAN_GROUP)
     before = K.FR_SCAN.launches
     K.fr_scan(to_port(rand_limbs(FR, (3,), 1)))
     assert K.FR_SCAN.launches == before

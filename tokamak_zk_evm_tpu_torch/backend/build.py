@@ -47,9 +47,7 @@ SIGNATURES = {
     },
     "fr_scan": {
         "tzk_fr_scan_tile": [],
-        "tzk_fr_scan_up": [_P, _P, _LL, _I, _P],
-        "tzk_fr_scan_top": [_P, _I, _P],
-        "tzk_fr_scan_tiles": [_P, _P, _P, _LL, _I, _P],
+        "tzk_fr_scan": [_P, _P, _P, _LL, _LL, _I, _P],
     },
     "ntt": {
         "tzk_ntt_passes": [_LL, _LL],

@@ -1,5 +1,6 @@
 // BLS12-381 Fr Montgomery arithmetic on PTX carry chains, for K3's NTT
-// (ntt.cu), K2's Fr inversions (field_inv.cu) and B6's scan (fr_scan.cu).
+// (ntt.cu), K2's Fr inversions (field_inv.cu) and B6's scan (fr_scan.cu,
+// on `mul_wide`).
 // The same scheme as fq_chain.cuh's Fq arithmetic, whose carry primitives
 // it uses, over 8 words:
 //
@@ -111,6 +112,75 @@ __device__ __forceinline__ void mul(fe& r, const fe& a, const fe& b) {
   reduce_once(o);
 #pragma unroll
   for (int k = 0; k < N; ++k) r[k] = o[k];
+}
+
+// One CIOS row of `mul_wide` on the split partial sum (g1_lazy.cuh's `row`
+// at 8 words).  On entry E and O hold V = (E >> 32) + O (E[0] = 0); adds
+// a * bi, then m r with m = -O[0] (n0 = -1) clearing the lowest word; on
+// return O (lowest word 0) and E hold (V + a bi + m r) / 2^32 as
+// (O >> 32) + E, so the next row is row(O, E, ...).
+__device__ __forceinline__ void row(uint32_t* E, uint32_t* O, const fe& a, uint32_t bi) {
+  O[0] = add_cc(O[0], E[1]);
+#pragma unroll
+  for (int j = 0; j < N - 2; j += 2) {
+    E[j] = madc_lo_cc(a[j + 1], bi, E[j + 2]);
+    E[j + 1] = madc_hi_cc(a[j + 1], bi, E[j + 3]);
+  }
+  E[N - 2] = madc_lo_cc(a[N - 1], bi, 0u);
+  E[N - 1] = madc_hi(a[N - 1], bi, 0u);
+  O[0] = mad_lo_cc(a[0], bi, O[0]);
+  O[1] = madc_hi_cc(a[0], bi, O[1]);
+#pragma unroll
+  for (int j = 2; j < N; j += 2) {
+    O[j] = madc_lo_cc(a[j], bi, O[j]);
+    O[j + 1] = madc_hi_cc(a[j], bi, O[j + 1]);
+  }
+  E[N - 1] = addc(E[N - 1], 0u);
+  const uint32_t m = 0u - O[0];
+  E[0] = mad_lo_cc(m, rw(1), E[0]);
+  E[1] = madc_hi_cc(m, rw(1), E[1]);
+#pragma unroll
+  for (int j = 2; j < N - 2; j += 2) {
+    E[j] = madc_lo_cc(m, rw(j + 1), E[j]);
+    E[j + 1] = madc_hi_cc(m, rw(j + 1), E[j + 1]);
+  }
+  E[N - 2] = madc_lo_cc(m, rw(N - 1), E[N - 2]);
+  E[N - 1] = madc_hi(m, rw(N - 1), E[N - 1]);
+  O[0] = mad_lo_cc(m, rw(0), O[0]);
+  O[1] = madc_hi_cc(m, rw(0), O[1]);
+#pragma unroll
+  for (int j = 2; j < N; j += 2) {
+    O[j] = madc_lo_cc(m, rw(j), O[j]);
+    O[j + 1] = madc_hi_cc(m, rw(j), O[j + 1]);
+  }
+  E[N - 1] = addc(E[N - 1], 0u);
+}
+
+// a * b * R^-1 mod r for a, b < r, the bytes of `mul`: CIOS with the partial
+// sums split into an even and an odd half (the words of a * b_i at even and
+// at odd j go to two arrays), so each row is two carry chains whose (lo, hi)
+// pairs sit side by side and ptxas fuses each pair into one
+// IMAD.WIDE.U32.X.  No word overflows: the top word of E takes at most
+// hi(a_7 b_i) + hi(m r_7) + 4 carries <= 2 r_7 + 2 < 2^32, as a < r keeps
+// a_7 <= r_7 = 0x73eda753; the sum stays below 2r, so one conditional
+// subtract ends it.
+__device__ __forceinline__ void mul_wide(fe& r, const fe& a, const fe& b) {
+  uint32_t ev[N], od[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) ev[k] = od[k] = 0u;
+#pragma unroll
+  for (int i = 0; i < N; i += 2) {
+    row(ev, od, a, b[i]);
+    row(od, ev, a, b[i + 1]);
+  }
+  fe t;
+  t[0] = add_cc(od[0], ev[1]);
+#pragma unroll
+  for (int k = 1; k < N - 1; ++k) t[k] = addc_cc(od[k], ev[k + 1]);
+  t[N - 1] = addc(od[N - 1], 0u);
+  reduce_once(t);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r[k] = t[k];
 }
 
 }  // namespace frc

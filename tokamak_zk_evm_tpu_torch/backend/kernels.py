@@ -22,8 +22,8 @@ doubling on `g1_lazy.cuh`'s):
                         BATCH_INV        tiled batch inversion (one tile, or
                                          up / top / down)
   B6 csrc/fr_scan.cu    FR_SCAN          inclusive Fr product scan, prefix
-                                         or suffix (one tile, or up / top /
-                                         tiles)
+                                         or suffix, one pass (a decoupled
+                                         look-back across tiles)
   K3 csrc/ntt.cu        NTT              NTT along either grid axis, stages
                                          fused in shared memory, one or two
                                          passes, the scale folded in; past
@@ -322,7 +322,17 @@ def fq_batch_inv(a):
 # B6: Fr product scan
 # ---------------------------------------------------------------------------
 
-SCAN_TILE = 1024  # csrc/fr_scan.cu TILE: up to it one launch, above three
+SCAN_K = 8  # csrc/fr_scan.cu K, the positions a thread scans
+SCAN_TILE = 1024  # csrc/fr_scan.cu TILE = THREADS x K, the positions a block scans
+SCAN_GROUP = 32  # csrc/fr_scan.cu GROUP, the tiles of a group
+
+
+def scan_status_words(B: int) -> int:
+    """Words of fr_scan's zeroed scratch for B elements: the tile counter; a
+    flag and 8 aggregate words a tile; a flag, 8 aggregate and 8 prefix
+    words a group of SCAN_GROUP tiles."""
+    nt = -(-B // SCAN_TILE)
+    return 1 + 9 * nt + 17 * -(-nt // SCAN_GROUP)
 
 
 def plain_fr_scan(a, reverse: bool = False):
@@ -343,9 +353,10 @@ def plain_fr_scan(a, reverse: bool = False):
 
 def fr_scan(a, reverse: bool = False):
     """Inclusive product over the batch axis of `a` [16, B]: out[i] = a[0]
-    ... a[i], or a[i] ... a[B-1] with `reverse`.  One launch up to
-    SCAN_TILE elements; above, the tile totals, their scan and the tiles
-    (three)."""
+    ... a[i], or a[i] ... a[B-1] with `reverse`.  One launch at every width:
+    the tiles pass their products on through status records (a decoupled
+    look-back), which this call allocates zeroed with the tile counter, so
+    no call reads another's."""
     _check(a, FR_L, "a")
     if not on_card(a):
         return plain_fr_scan(a, reverse)
@@ -353,15 +364,10 @@ def fr_scan(a, reverse: bool = False):
     out = torch.empty_like(a)
     if B == 0:
         return out
-    s, rev = _stream(a), int(reverse)
-    tot = None
-    if B > SCAN_TILE:
-        tot = torch.empty((FR_L, -(-B // SCAN_TILE)), dtype=torch.int32, device=a.device)
-        build.call("fr_scan", "tzk_fr_scan_up", _ptr(a), _ptr(tot), B, rev, s)
-        FR_SCAN.launches += 1
-        build.call("fr_scan", "tzk_fr_scan_top", _ptr(tot), tot.shape[1], s)
-        FR_SCAN.launches += 1
-    build.call("fr_scan", "tzk_fr_scan_tiles", _ptr(a), _ptr(out), _ptr(tot), B, rev, s)
+    words = scan_status_words(B)
+    status = torch.zeros(words, dtype=torch.int32, device=a.device)
+    build.call("fr_scan", "tzk_fr_scan", _ptr(a), _ptr(out), _ptr(status), words, B,
+               int(reverse), _stream(a))
     FR_SCAN.launches += 1
     return out
 
