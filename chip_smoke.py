@@ -72,6 +72,19 @@ Phases, in order (any mismatch or exception exits non-zero):
      pinned digest, verify must print true and, for a proof with one limb
      changed, false; every kernel of the path but K5 must launch; `python -m
      tokamak_zk_evm_tpu_torch doctor` must pass;
+  5g. the frontend's witness path into the file contract, right after 5d in
+     its directory: 5d's library read back with `load_library`, every one of
+     the 256 placements re-derived from its inputs alone, (i) through
+     `SubcircuitCalculators` (the library has no wasm/ dir, so every
+     subcircuit must compile under `frontend/r1cs_eval`) and (ii) through
+     `WitnessGenerator`'s solver engine and its R1CS check, each witness
+     equal to the fixture's; the compiled schedule's placements written as
+     placementVariables.json beside 5d's instance and permutation, then the
+     CLI's prove --deterministic and verify on 5d's CRS (counters set to 0
+     before, read after): proof.json must equal 5d's byte for byte and hash
+     to the pinned digest, verify must print true, K1, K2, K3, K4's MSM
+     stages and B6 must launch and K5 must not; the host seconds of each
+     step are printed beside the card's name and power limit;
   5e. the MPC ceremony at the synthetic full shape, in process with seeded
      rngs: phase-1 init and two contributions, each verified, the
      accumulator's JSON written and read back (checked); phase-2 prepare
@@ -771,22 +784,33 @@ def drive(torch, np, K, dev, fx, core, sigma=None):
     return sigma, canonical_proof_bytes(proof), counts
 
 
-def drive_files(torch, np, K, dev, fx, sigma):
+# phase 5d's staged directories, under one scratch directory
+STAGED = ("library", "synthesizer", "crs", "pre", "proof")
+
+
+def run_cli(cli, dev, argv):
+    """(exit code, last stdout line) of one call of the port's CLI."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["--device", str(dev)] + argv)
+    lines = out.getvalue().strip().splitlines()
+    return rc, lines[-1] if lines else ""
+
+
+def drive_files(torch, np, K, dev, fx, sigma, tmp):
     """Phase 5d: the synthetic full shape staged as reference-layout files
-    (library dir, the synthesizer's three JSONs) in a scratch directory
-    under the checkout's `.cache/`, then the port's CLI in this process:
+    (library dir, the synthesizer's three JSONs) in the scratch directory
+    `tmp`, then the port's CLI in this process:
     setup --fixed-tau --format both, preprocess, prove --deterministic,
     verify; every launch counter set to 0 just before and read just after.
     Then: both CRS formats load to phase 5's `sigma`, proof.json is the
     in-process Mixer.zero() proof on that `sigma` and hashes to the JAX
     package's pinned digest, a proof with one limb changed prints false,
-    and `python -m tokamak_zk_evm_tpu_torch doctor` passes.  The directory
-    is deleted at the end.  -> (counts, seconds, the Mixer.zero() proof's
+    and `python -m tokamak_zk_evm_tpu_torch doctor` passes.  The files stay
+    in `tmp` for phase 5g.  -> (counts, seconds, the Mixer.zero() proof's
     canonical bytes)."""
-    import io
-    import shutil
-    import tempfile
-
     from tokamak_zk_evm_tpu_torch import cli
     from tokamak_zk_evm_tpu_torch.io import artifacts as art, crs, rkyv_crs
     from tokamak_zk_evm_tpu_torch.models.protocol import Mixer
@@ -794,111 +818,197 @@ def drive_files(torch, np, K, dev, fx, sigma):
     from tokamak_zk_evm_tpu_torch.testing.synthetic import FULLSHAPE_PROOF_SHA256
     from tokamak_zk_evm_tpu_torch.utils.ceremony_drive import sigma_equal
 
-    def run(argv):
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            rc = cli.main(["--device", str(dev)] + argv)
-        lines = out.getvalue().strip().splitlines()
-        return rc, lines[-1] if lines else ""
-
-    cache = os.path.join(ROOT, ".cache")
-    os.makedirs(cache, exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_5d_", dir=cache)
-    try:
-        lib, synth, crs_dir, pre, prf = (os.path.join(tmp, d) for d in
-                                         ("library", "synthesizer", "crs", "pre", "proof"))
+    lib, synth, crs_dir, pre, prf = (os.path.join(tmp, d) for d in STAGED)
+    t0 = time.perf_counter()
+    os.makedirs(synth)
+    art.save_library(lib, fx.params, fx.infos, fx.library)
+    art.save_placement_variables(fx.placements, os.path.join(synth, "placementVariables.json"))
+    art.save_instance(fx.instance, os.path.join(synth, "instance.json"))
+    art.save_permutation(fx.permutation, os.path.join(synth, "permutation.json"))
+    log(f"  staged the library and the synthesizer outputs in "
+        f"{time.perf_counter() - t0:.3f} s (host)")
+    stages = (
+        ("setup", ["setup", "--library", lib, "--output", crs_dir, "--fixed-tau",
+                   "--format", "both"]),
+        ("preprocess", ["preprocess", "--crs", crs_dir, "--library", lib,
+                        "--synthesizer", synth, "--output", pre]),
+        ("prove", ["prove", "--crs", crs_dir, "--library", lib, "--synthesizer", synth,
+                   "--output", prf, "--deterministic"]),
+        ("verify", ["verify", "--crs", crs_dir, "--library", lib, "--preprocess", pre,
+                    "--proof", prf, "--synthesizer", synth]),
+    )
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_counts()
+    t, rcs = {}, {}
+    for name, argv in stages:
         t0 = time.perf_counter()
-        os.makedirs(synth)
-        art.save_library(lib, fx.params, fx.infos, fx.library)
-        art.save_placement_variables(fx.placements, os.path.join(synth, "placementVariables.json"))
-        art.save_instance(fx.instance, os.path.join(synth, "instance.json"))
-        art.save_permutation(fx.permutation, os.path.join(synth, "permutation.json"))
-        log(f"  staged the library and the synthesizer outputs in "
-            f"{time.perf_counter() - t0:.3f} s (host)")
-        stages = (
-            ("setup", ["setup", "--library", lib, "--output", crs_dir, "--fixed-tau",
-                       "--format", "both"]),
-            ("preprocess", ["preprocess", "--crs", crs_dir, "--library", lib,
-                            "--synthesizer", synth, "--output", pre]),
-            ("prove", ["prove", "--crs", crs_dir, "--library", lib, "--synthesizer", synth,
-                       "--output", prf, "--deterministic"]),
-            ("verify", ["verify", "--crs", crs_dir, "--library", lib, "--preprocess", pre,
-                        "--proof", prf, "--synthesizer", synth]),
-        )
+        rcs[name] = run_cli(cli, dev, argv)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        K.reset_counts()
-        t, rcs = {}, {}
-        for name, argv in stages:
-            t0 = time.perf_counter()
-            rcs[name] = run(argv)
-            torch.cuda.synchronize()
-            t[name] = time.perf_counter() - t0
-        counts = K.counts()
-        peak = torch.cuda.max_memory_allocated()
-        sizes = {f: os.path.getsize(os.path.join(crs_dir, f)) for f in sorted(os.listdir(crs_dir))}
-        npy = sum(v for f, v in sizes.items() if f.endswith(".npy"))
-        log("  seconds: " + json.dumps({k: round(v, 3) for k, v in t.items()}))
-        log(f"  CRS files: npy {npy} B in {sum(f.endswith('.npy') for f in sizes)} files, "
-            f"combined_sigma.rkyv {sizes['combined_sigma.rkyv']} B, sigma_preprocess.rkyv "
-            f"{sizes['sigma_preprocess.rkyv']} B, sigma_meta.json {sizes['sigma_meta.json']} B, "
-            f"sigma_verify.json {sizes['sigma_verify.json']} B")
-        log("  kernels " + json.dumps(counts))
-        log(f"  peak device memory {peak / 2**30:.3f} GiB")
-        for name in ("setup", "preprocess", "prove"):
-            expect(rcs[name][0] == 0, f"cli {name} exits 0")
-        expect(rcs["verify"] == (0, "true"), "cli verify prints true (exit 0)")
+        t[name] = time.perf_counter() - t0
+    counts = K.counts()
+    peak = torch.cuda.max_memory_allocated()
+    sizes = {f: os.path.getsize(os.path.join(crs_dir, f)) for f in sorted(os.listdir(crs_dir))}
+    npy = sum(v for f, v in sizes.items() if f.endswith(".npy"))
+    log("  seconds: " + json.dumps({k: round(v, 3) for k, v in t.items()}))
+    log(f"  CRS files: npy {npy} B in {sum(f.endswith('.npy') for f in sizes)} files, "
+        f"combined_sigma.rkyv {sizes['combined_sigma.rkyv']} B, sigma_preprocess.rkyv "
+        f"{sizes['sigma_preprocess.rkyv']} B, sigma_meta.json {sizes['sigma_meta.json']} B, "
+        f"sigma_verify.json {sizes['sigma_verify.json']} B")
+    log("  kernels " + json.dumps(counts))
+    log(f"  peak device memory {peak / 2**30:.3f} GiB")
+    for name in ("setup", "preprocess", "prove"):
+        expect(rcs[name][0] == 0, f"cli {name} exits 0")
+    expect(rcs["verify"] == (0, "true"), "cli verify prints true (exit 0)")
 
-        with open(os.path.join(prf, "proof.json")) as f:
-            d = json.load(f)
-        bad = {k: list(v) for k, v in d.items()}
-        last = int(bad["proof_entries_part2"][-1], 16) ^ 1
-        bad["proof_entries_part2"][-1] = "0x" + last.to_bytes(32, "big").hex()
-        bad_dir = os.path.join(tmp, "proof_bad")
-        os.makedirs(bad_dir)
-        with open(os.path.join(bad_dir, "proof.json"), "w") as f:
-            json.dump(bad, f)
-        rc, out = run(["verify", "--crs", crs_dir, "--library", lib, "--preprocess", pre,
-                       "--proof", bad_dir, "--synthesizer", synth])
-        expect((rc, out) == (1, "false"), "cli verify of a proof with one limb changed prints "
-               "false (exit 1)")
+    with open(os.path.join(prf, "proof.json")) as f:
+        d = json.load(f)
+    bad = {k: list(v) for k, v in d.items()}
+    last = int(bad["proof_entries_part2"][-1], 16) ^ 1
+    bad["proof_entries_part2"][-1] = "0x" + last.to_bytes(32, "big").hex()
+    bad_dir = os.path.join(tmp, "proof_bad")
+    os.makedirs(bad_dir)
+    with open(os.path.join(bad_dir, "proof.json"), "w") as f:
+        json.dump(bad, f)
+    rc, out = run_cli(cli, dev, ["verify", "--crs", crs_dir, "--library", lib, "--preprocess",
+                                 pre, "--proof", bad_dir, "--synthesizer", synth])
+    expect((rc, out) == (1, "false"), "cli verify of a proof with one limb changed prints "
+           "false (exit 1)")
 
-        t0 = time.perf_counter()
-        loaded = crs.load_sigma(crs_dir, dev)
-        torch.cuda.synchronize()
-        log(f"  npy CRS loaded in {time.perf_counter() - t0:.3f} s")
-        expect(sigma_equal(torch, loaded, sigma), "npy CRS (crs.load_sigma) == phase 5's sigma")
-        del loaded
-        t0 = time.perf_counter()
-        loaded = rkyv_crs.read_combined_sigma(os.path.join(crs_dir, "combined_sigma.rkyv"),
-                                              fx.params, device=dev)
-        torch.cuda.synchronize()
-        log(f"  combined_sigma.rkyv read in {time.perf_counter() - t0:.3f} s")
-        expect(sigma_equal(torch, loaded, sigma),
-               "rkyv CRS (rkyv_crs.read_combined_sigma) == phase 5's sigma")
-        del loaded
-        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    loaded = crs.load_sigma(crs_dir, dev)
+    torch.cuda.synchronize()
+    log(f"  npy CRS loaded in {time.perf_counter() - t0:.3f} s")
+    expect(sigma_equal(torch, loaded, sigma), "npy CRS (crs.load_sigma) == phase 5's sigma")
+    del loaded
+    t0 = time.perf_counter()
+    loaded = rkyv_crs.read_combined_sigma(os.path.join(crs_dir, "combined_sigma.rkyv"),
+                                          fx.params, device=dev)
+    torch.cuda.synchronize()
+    log(f"  combined_sigma.rkyv read in {time.perf_counter() - t0:.3f} s")
+    expect(sigma_equal(torch, loaded, sigma),
+           "rkyv CRS (rkyv_crs.read_combined_sigma) == phase 5's sigma")
+    del loaded
+    torch.cuda.empty_cache()
 
-        proof, _ = Prover(fx.params, sigma, fx.library, fx.infos, fx.placements, fx.permutation,
-                          fx.instance, mixer=Mixer.zero(), device=dev).prove()
-        expect(d == art.proof_to_solidity(proof),
-               "proof.json == the in-process Mixer.zero() proof on phase 5's sigma")
-        digest = hashlib.sha256(art.canonical_proof_bytes(art.proof_from_solidity(d))).hexdigest()
-        expect(digest == FULLSHAPE_PROOF_SHA256,
-               f"proof.json digest {digest[:16]}... is the JAX package's pinned one")
+    proof, _ = Prover(fx.params, sigma, fx.library, fx.infos, fx.placements, fx.permutation,
+                      fx.instance, mixer=Mixer.zero(), device=dev).prove()
+    expect(d == art.proof_to_solidity(proof),
+           "proof.json == the in-process Mixer.zero() proof on phase 5's sigma")
+    digest = hashlib.sha256(art.canonical_proof_bytes(art.proof_from_solidity(d))).hexdigest()
+    expect(digest == FULLSHAPE_PROOF_SHA256,
+           f"proof.json digest {digest[:16]}... is the JAX package's pinned one")
 
-        t0 = time.perf_counter()
-        doc = subprocess.run([sys.executable, "-m", "tokamak_zk_evm_tpu_torch", "doctor"],
-                             cwd=ROOT, capture_output=True, text=True, timeout=300)
-        for line in doc.stderr.strip().splitlines():
-            log(f"    {line}")
-        expect(doc.returncode == 0 and doc.stdout.strip().splitlines()[-1:] == ["true"],
-               f"python -m tokamak_zk_evm_tpu_torch doctor prints true, exit 0 "
-               f"({time.perf_counter() - t0:.3f} s)")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    doc = subprocess.run([sys.executable, "-m", "tokamak_zk_evm_tpu_torch", "doctor"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    for line in doc.stderr.strip().splitlines():
+        log(f"    {line}")
+    expect(doc.returncode == 0 and doc.stdout.strip().splitlines()[-1:] == ["true"],
+           f"python -m tokamak_zk_evm_tpu_torch doctor prints true, exit 0 "
+           f"({time.perf_counter() - t0:.3f} s)")
     torch.cuda.empty_cache()
     return counts, t, art.canonical_proof_bytes(proof)
+
+
+def drive_frontend(torch, K, dev, fx, tmp):
+    """Phase 5g: the frontend's witness engines re-derive every placement of
+    `fx` from its inputs alone, on phase 5d's staged library read back from
+    `tmp`, and the re-derived placements prove through the CLI on 5d's CRS.
+
+    (i) `SubcircuitCalculators` on the library dir (no `wasm/`, so every
+    subcircuit must compile under `frontend/r1cs_eval`; a fallback would
+    raise); (ii) `WitnessGenerator`'s solver engine (`models/witness_solver`,
+    then the R1CS satisfaction check) on every placement; (iii) each witness
+    == the fixture's placement variables; (iv) the compiled schedule's
+    witnesses written as placementVariables.json beside 5d's instance and
+    permutation, then prove --deterministic and verify through the CLI,
+    every launch counter set to 0 before and read after: proof.json must be
+    5d's byte for byte and hash to the pinned digest, and verify print
+    true.  -> (counts, seconds)."""
+    import shutil
+
+    from tokamak_zk_evm_tpu_torch import cli
+    from tokamak_zk_evm_tpu_torch.frontend.witness_calculator import SubcircuitCalculators
+    from tokamak_zk_evm_tpu_torch.frontend.witness_gen import WitnessGenerator
+    from tokamak_zk_evm_tpu_torch.io import artifacts as art
+    from tokamak_zk_evm_tpu_torch.models.protocol import Placement
+    from tokamak_zk_evm_tpu_torch.testing.synthetic import FULLSHAPE_PROOF_SHA256
+
+    lib, synth, crs_dir, pre, prf = (os.path.join(tmp, d) for d in STAGED)
+    t = {}
+
+    def inputs(p, info):
+        i0, ic = info.In_idx
+        return p.variables[i0:i0 + ic]
+
+    t0 = time.perf_counter()
+    _, infos, library = art.load_library(lib)
+    calcs = SubcircuitCalculators(lib)
+    expect(not calcs.available(), "the staged library ships no wasm/ dir (no WASM fallback)")
+    for info in infos:
+        expect(calcs._compiled_for(info.id) is not False,
+               f"subcircuit {info.id} ({info.name}, {len(library[info.id].A_cols)} A columns) "
+               f"compiles under r1cs_eval")
+    t["load_compile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    derived = [calcs.witness(p.subcircuit_id, inputs(p, infos[p.subcircuit_id]))
+               for p in fx.placements]
+    t["replay"] = time.perf_counter() - t0
+    bad = [i for i, (w, p) in enumerate(zip(derived, fx.placements)) if w != p.variables]
+    expect(not bad, f"(i) the compiled schedule re-derives all {len(derived)} placements == "
+           f"the fixture's variables ({len(bad)} differ)")
+
+    gen = WitnessGenerator(None, infos, library)
+    per, bad = [], []
+    for i, p in enumerate(fx.placements):
+        t0 = time.perf_counter()
+        w = gen.witness(p.subcircuit_id, inputs(p, infos[p.subcircuit_id]))
+        per.append(time.perf_counter() - t0)
+        if w != p.variables:
+            bad.append(i)
+    t["solver"] = sum(per)
+    log(f"  solver seconds per placement: min {min(per):.4f}, median "
+        f"{sorted(per)[len(per) // 2]:.4f}, max {max(per):.4f}")
+    expect(not bad, f"(ii) the solver engine (then the R1CS check) re-derives all {len(per)} "
+           f"placements == the fixture's variables ({len(bad)} differ)")
+
+    synth_g, prf_g = os.path.join(tmp, "synthesizer_5g"), os.path.join(tmp, "proof_5g")
+    os.makedirs(synth_g)
+    for name in ("instance.json", "permutation.json"):
+        shutil.copy(os.path.join(synth, name), synth_g)
+    t0 = time.perf_counter()
+    art.save_placement_variables(
+        [Placement(p.subcircuit_id, w) for p, w in zip(fx.placements, derived)],
+        os.path.join(synth_g, "placementVariables.json"))
+    t["write"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    K.reset_counts()
+    t0 = time.perf_counter()
+    rc_p = run_cli(cli, dev, ["prove", "--crs", crs_dir, "--library", lib, "--synthesizer",
+                              synth_g, "--output", prf_g, "--deterministic"])
+    torch.cuda.synchronize()
+    t["prove"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc_v = run_cli(cli, dev, ["verify", "--crs", crs_dir, "--library", lib, "--preprocess", pre,
+                              "--proof", prf_g, "--synthesizer", synth_g])
+    torch.cuda.synchronize()
+    t["verify"] = time.perf_counter() - t0
+    counts = K.counts()
+    log("  host seconds: " + json.dumps({k: round(v, 3) for k, v in t.items()})
+        + f" ({gpu_line()})")
+    log("  kernels " + json.dumps(counts))
+    expect(rc_p[0] == 0, "cli prove on the re-derived placements exits 0")
+    with open(os.path.join(prf_g, "proof.json"), "rb") as f:
+        got = f.read()
+    with open(os.path.join(prf, "proof.json"), "rb") as f:
+        expect(got == f.read(), "(iv) proof.json == phase 5d's, byte for byte")
+    d = json.loads(got)
+    digest = hashlib.sha256(art.canonical_proof_bytes(art.proof_from_solidity(d))).hexdigest()
+    expect(digest == FULLSHAPE_PROOF_SHA256,
+           f"(iv) proof.json digest {digest[:16]}... is the JAX package's pinned one")
+    expect(rc_v == (0, "true"), "(iv) cli verify prints true (exit 0)")
+    return counts, t
 
 
 def dist_store(tag: str) -> tuple[str, str]:
@@ -1822,11 +1932,25 @@ def main() -> int:
 
     log("[5d] the file-contract path: the port's CLI, setup -> preprocess -> prove -> verify "
         f"through files at the synthetic full shape ({gpu_line()})")
-    counts_d, _, proof_zero = drive_files(torch, np, K, dev, fx, sigma)
-    expect_launches(counts_d, [n for n in counts_d if n not in affine + not_needed], affine,
-                    "file-contract path (5d)")
-    del sigma
-    torch.cuda.empty_cache()
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, ".cache"), exist_ok=True)
+    staged = tempfile.mkdtemp(prefix="chip_smoke_5d_", dir=os.path.join(ROOT, ".cache"))
+    try:
+        counts_d, _, proof_zero = drive_files(torch, np, K, dev, fx, sigma, staged)
+        expect_launches(counts_d, [n for n in counts_d if n not in affine + not_needed], affine,
+                        "file-contract path (5d)")
+        del sigma
+        torch.cuda.empty_cache()
+        log("[5g] the frontend: every placement re-derived from its inputs (compiled schedule, "
+            "solver engine) on 5d's library, then prove and verify through the CLI on 5d's CRS")
+        counts_g, _ = drive_frontend(torch, K, dev, fx, staged)
+    finally:
+        shutil.rmtree(staged, ignore_errors=True)
+    expect_launches(counts_g, [K.FR_EW.name, K.FIELD_INV.name, K.BATCH_INV.name, K.NTT.name,
+                               K.MSM_BUCKET_SUM.name, K.MSM_WINDOW.name, K.FR_SCAN.name],
+                    affine, "frontend's path (5g)")
 
     log("[5e] the MPC ceremony at the synthetic full shape: in process (seeded), then the "
         f"CLI's mpc steps through files ({gpu_line()})")
@@ -1884,6 +2008,7 @@ def main() -> int:
         if r["name"] in widths_e:
             r["ceremony_5e"] = widths_e[r["name"]]
         r["launches_5d"] = counts_d[r["name"]]
+        r["launches_5g"] = counts_g[r["name"]]
         r["launches_5e"] = counts_e[r["name"]]
         r["launches_5f"] = [res["kernels"][r["name"]] for res in ranks_f]
         if r["name"] in b13:

@@ -275,12 +275,51 @@ def test_cli_install_provenance_equals_jax(staged, tmp_path):
     assert os.path.isfile(os.path.join(tws, "subcircuit-library", "setupParams.json"))
 
 
-@pytest.mark.parametrize("command", [pytest.param(["synthesize"], id="synthesize"),
-                                     pytest.param(["mpc", "phase2-verify"], id="mpc")])
-def test_commands_still_to_come_are_absent(command):
-    """`synthesize` (frontend) waits for its slice; `mpc` has the JAX CLI's
-    five steps and no step the JAX CLI lacks (no `phase2-verify`)."""
+def _subparser(build_parser, name):
+    sub = next(a for a in build_parser()._actions if a.dest == "command")
+    return sub.choices[name]
+
+
+def _synthesize_surface(tmp_path, monkeypatch):
+    """`synthesize` has the JAX parser's options and defaults, and on a
+    snapshot dir with no library both CLIs fail the same way."""
+    from tokamak_zk_evm_tpu.cli import build_parser as j_build_parser
+    from tokamak_zk_evm_tpu_torch.cli import build_parser
+
+    def options(parser):
+        return [(a.option_strings, a.dest, a.default, a.required, a.type, a.help)
+                for a in _subparser(parser, "synthesize")._actions]
+
+    assert options(build_parser) == options(j_build_parser)
+    args = build_parser().parse_args(CPU + ["synthesize", "--input", "i", "--output", "o"])
+    assert (args.s_max, args.library) == (256, None)
+
+    snap = tmp_path / "snapshot"
+    snap.mkdir()
+    for name in ("previous_state_snapshot", "transaction", "block_info", "contract_codes"):
+        (snap / f"{name}.json").write_text("{}")
+    monkeypatch.delenv("TZK_SUBCIRCUIT_LIBRARY", raising=False)
+    msgs = []
+    for fn, pre, out in ((main, CPU, "t"), (jmain, [], "j")):
+        with pytest.raises(SystemExit) as e:
+            fn(pre + ["synthesize", "--input", str(snap), "--output", str(tmp_path / out)])
+        msgs.append(str(e.value.code))
+        assert not (tmp_path / out).exists()
+    assert all(m.startswith("--library is required (this build has no embedded "
+                            "subcircuit library;") for m in msgs), msgs
+
+
+def _mpc_surface(tmp_path, monkeypatch):
+    """`mpc` has the JAX CLI's five steps and no step the JAX CLI lacks (no
+    `phase2-verify`)."""
     err = io.StringIO()
     with contextlib.redirect_stderr(err), pytest.raises(SystemExit) as e:
-        main(CPU + command)
+        main(CPU + ["mpc", "phase2-verify"])
     assert e.value.code == 2 and "invalid choice" in err.getvalue()
+
+
+@pytest.mark.parametrize("command", [pytest.param(_synthesize_surface, id="synthesize"),
+                                     pytest.param(_mpc_surface, id="mpc")])
+def test_commands_still_to_come_are_absent(command, tmp_path, monkeypatch):
+    """Each command's surface against the JAX CLI's (see the case)."""
+    command(tmp_path, monkeypatch)

@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, no JAX package, no silent CPU fallback.
 
 * a subprocess blocks `jax` (and the JAX package) in `sys.modules`, imports
-  the port (the multi-device modules too) and proves the toy fixture on
-  the CPU, reproducing the golden digest;
+  the port (the multi-device and frontend modules too), proves the toy
+  fixture on the CPU, reproducing the golden digest, and re-derives its
+  witnesses with the frontend's solver engine and compiled schedule;
 * no file of the port and not `chip_smoke.py` names `jax` or
   `tokamak_zk_evm_tpu` in an import;
 * the entry points (and the CRS loaders, the ceremony's steps, the CLI
@@ -51,6 +52,17 @@ acc = mpc_setup.Phase1Accumulator.initial(fx.params)
 acc1, proof = acc.compute(__import__("numpy").random.default_rng(0), "cpu")
 assert mpc_setup.Phase1Proof.from_json(proof.to_json(), "cpu") == proof
 assert dusk_pot.g1_from_bytes(dusk_pot.g1_to_bytes(acc1.x_g1[0], True), True) == acc1.x_g1[0]
+from tokamak_zk_evm_tpu_torch.frontend import (merkle, r1cs_eval, snapshot, synthesizer, wasm_vm,
+                                               witness_calculator, witness_gen)
+from tokamak_zk_evm_tpu_torch.host import reference
+from tokamak_zk_evm_tpu_torch.models import witness_solver
+from tokamak_zk_evm_tpu_torch.testing import real_fixture
+gen = witness_gen.WitnessGenerator(None, fx.infos, fx.library)
+for p in fx.placements:
+    info = fx.infos[p.subcircuit_id]
+    ins = p.variables[info.In_idx[0]:info.In_idx[0] + info.In_idx[1]]
+    assert gen.witness(p.subcircuit_id, ins) == p.variables
+    assert r1cs_eval.compile_subcircuit(fx.library[info.id], info).evaluate(ins) == p.variables
 assert not any(m == "jax" or m.startswith(("jax.", "tokamak_zk_evm_tpu."))
                for m, v in sys.modules.items() if v is not None)
 print("PROVED-WITHOUT-JAX")

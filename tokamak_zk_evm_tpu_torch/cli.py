@@ -12,6 +12,7 @@ runs only when asked):
     python -m tokamak_zk_evm_tpu_torch doctor
     python -m tokamak_zk_evm_tpu_torch install    --workspace DIR [--library DIR] [--no-setup] [--fixed-tau]
     python -m tokamak_zk_evm_tpu_torch extract-proof --synthesizer DIR --preprocess DIR --prove DIR --output ZIP
+    python -m tokamak_zk_evm_tpu_torch synthesize --input DIR [--library DIR] --output DIR [--s-max N]
     python -m tokamak_zk_evm_tpu_torch mpc phase1-init       --library DIR --output ACC.json
     python -m tokamak_zk_evm_tpu_torch mpc phase1-contribute --acc ACC.json --output ACC.json --proof PROOF.json
     python -m tokamak_zk_evm_tpu_torch mpc phase1-verify     --prev ACC.json --cur ACC.json --proof PROOF.json
@@ -25,6 +26,10 @@ library dir (`subcircuits/library` layout).  `verify` and `mpc
 phase1-verify` print `true`/`false` like the reference verifier.  A CRS dir
 written by either package is read by the other (`io/crs.py`,
 `io/rkyv_crs.py`), and so are the ceremony's accumulator and proof files.
+`synthesize` replays a transaction snapshot directory on the host (it
+takes `--device` and ignores it: no part of the replay touches a tensor);
+its library dir must ship `wasm/` or have subcircuits that compile under
+`frontend/r1cs_eval.py`.
 """
 
 from __future__ import annotations
@@ -59,6 +64,30 @@ def _load_synthesizer_outputs(d: str):
     instance = art.load_instance(os.path.join(d, "instance.json"))
     permutation = art.load_permutation(os.path.join(d, "permutation.json"))
     return placements, instance, permutation
+
+
+def cmd_synthesize(args) -> int:
+    """Replay a transaction snapshot into circuit artifacts — the
+    reference's `tokamak-cli --synthesize` stage (`cli/src/cli.ts:122-171`,
+    input contract `core/src/app/synthesize.ts:31`).  Host only."""
+    from .frontend.snapshot import synthesize_from_snapshot
+    from .io import artifacts as art
+
+    t0 = time.time()
+    res = synthesize_from_snapshot(
+        args.input, _resolve_library(args), s_max=args.s_max)
+    _log(f"[synthesize] replay done in {time.time() - t0:.1f}s: "
+         f"{len(res.placements)} placements, "
+         f"{len(res.permutation)} permutation entries"
+         + (" (REVERTED)" if res.reverted else ""))
+    os.makedirs(args.output, exist_ok=True)
+    art.save_placement_variables(
+        res.placements, os.path.join(args.output, "placementVariables.json"))
+    art.save_instance(res.instance, os.path.join(args.output, "instance.json"))
+    art.save_permutation(
+        res.permutation, os.path.join(args.output, "permutation.json"))
+    _log(f"[synthesize] artifacts written to {args.output}")
+    return 0
 
 
 def cmd_install(args) -> int:
@@ -348,6 +377,19 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--prove", required=True)
     s.add_argument("--output", required=True)
     s.set_defaults(fn=cmd_extract_proof)
+
+    s = sub.add_parser(
+        "synthesize",
+        help="replay a tx snapshot into circuit artifacts "
+             "(previous_state_snapshot/transaction/block_info/contract_codes"
+             ".json)")
+    s.add_argument("--input", required=True,
+                   help="directory with the 4 snapshot input JSON files")
+    s.add_argument("--library", help=_LIB_HELP)
+    s.add_argument("--output", required=True)
+    s.add_argument("--s-max", type=int, default=256,
+                   help="placement budget (power of two, default 256)")
+    s.set_defaults(fn=cmd_synthesize)
 
     s = sub.add_parser("setup", help="generate the CRS (trusted setup)")
     s.add_argument("--library", help=_LIB_HELP)
