@@ -104,10 +104,12 @@ Phases, in order (any mismatch or exception exits non-zero):
      The ceremony runs through `tokamak_zk_evm_tpu_torch/utils/
      ceremony_drive.py`;
   5f. the multi-device path (`parallel/`; the card machine has one GPU, and
-     NCCL refuses two ranks on one card): (i) a one-rank NCCL group, on
-     which `bintt_dist` at 16384 x 512, forward and inverse, must equal
-     `bintt` and `msm_dist` at 2^22 points the unsharded MSM and the O(1)
-     oracle, each timed beside its unsharded counterpart; (ii) two spawned
+     NCCL refuses two ranks on one card): (i) the scaling report
+     (`SCALE_MSM_LOG2=22 python -m tokamak_zk_evm_tpu_torch.utils.scaling_report`,
+     one NCCL rank), in which `bintt_dist` at 16384 x 512 must equal `bintt`
+     and its inverse give the grid back, and `msm_dist` at 2^22 points and
+     the unsharded MSM the O(1) oracle, each timed (one rank: cost figures,
+     not scaling ones); its rows are printed; (ii) two spawned
      ranks sharing the card over gloo (collectives through host memory)
      each prove `build_synthetic()` under `use_mesh` with `Mixer.zero()`:
      both proofs must equal phase 5d's and hash to the JAX package's pinned
@@ -129,14 +131,25 @@ Phases, in order (any mismatch or exception exits non-zero):
      2^20 (Fr), 2^22, 2^10 and 1 (Fq), and one `g1_aff_add_batch` at 2^22
      lanes, each beside its bound; B6's suffix and prefix scans at 2^20
      (round 1's), beside the K1 doubling chain they replaced; B13's add,
-     doubling and to-affine at 2^22 lanes.
-The last three lines are the nvidia-smi line, the kernels JSON and the device
-JSON. The port imports nothing of JAX; neither does this script.
+     doubling and to-affine at 2^22 lanes;
+  7. the bench (`python -m tokamak_zk_evm_tpu_torch.bench`, a subprocess,
+     after this process has freed what it held on the card): its default
+     ladder small -> mid -> full with TOKAMAK_BENCH_VERIFY=1 and a cache of
+     its own; each rung must bank a line with `bench.py`'s five keys naming
+     the card, its proof verified; the full rung's timed prove must launch
+     K1, K2, K3, K4's MSM stages and B6 and not K5 (its counts are each
+     kernel row's `launches_7`), its proof must hash to the pinned digest,
+     its 2^22-point MSM probe must meet the O(1) oracle and its mesh table
+     must be 5f's report.
+The last lines are the bench's three JSON lines, the nvidia-smi line, the
+kernels JSON and the device JSON. The port imports nothing of JAX; neither
+does this script.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import json
 import os
@@ -1022,63 +1035,118 @@ def dist_store(tag: str) -> tuple[str, str]:
     return tmp, os.path.join(tmp, "store")
 
 
-def drive_nccl_one(torch, np, K, dev):
-    """Phase 5f (i): a one-rank NCCL group (the real collectives, at the
-    main path's largest shapes): `bintt_dist` of a 16384 x 512 grid,
-    forward and inverse, == `bintt`; `msm_dist` of 2^22 oracle points and
-    the unsharded MSM == (sum k_i c_i) G, in turns (dist, MSM, MSM, dist);
-    each timed beside its unsharded counterpart.  The group is destroyed before the next phase.  -> stats."""
-    import shutil
+def run_module(module: str, args: list, timeout: float, env=None) -> str:
+    """`python -m module args` from the checkout, under `env` (default this
+    process's), its diagnostics on this process's standard error, in a
+    session of its own that is killed whole if it outlives `timeout`; fails
+    unless it exits 0.  -> its standard output."""
+    import signal
 
-    import torch.distributed as dist
-
-    from tokamak_zk_evm_tpu_torch.ops import msm as TM
-    from tokamak_zk_evm_tpu_torch.ops import ntt as NT
-    from tokamak_zk_evm_tpu_torch.parallel import mesh as PM
-    from tokamak_zk_evm_tpu_torch.parallel import msm_dist, ntt_dist
-
-    tmp, store = dist_store("5f_nccl")
-    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0, world_size=1)
-    stats = {}
+    env = dict(os.environ if env is None else env, PYTHONPATH=ROOT)
+    proc = subprocess.Popen([sys.executable, "-m", module] + args, cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, text=True, start_new_session=True)
     try:
-        mesh = PM.make_mesh(device=dev)
-        expect(mesh.backend == "nccl" and mesh.size == 1, "a one-rank NCCL mesh")
-        PM.reset_counts()
-        grid = rand_fr(torch, (16384, 512), 31, dev)
-        for inverse in (False, True):
-            tag = "inverse" if inverse else "forward"
-            got = ntt_dist.bintt_dist(grid, mesh, inverse)
-            expect(torch.equal(got, NT.bintt(grid, inverse=inverse)),
-                   f"bintt_dist 16384 x 512 {tag} (NCCL, 1 rank) == bintt, byte for byte")
-            del got
-            d_ms = cuda_ms(torch, lambda: ntt_dist.bintt_dist(grid, mesh, inverse), 3)
-            l_ms = cuda_ms(torch, lambda: NT.bintt(grid, inverse=inverse), 3)
-            stats[f"bintt_dist_{tag}_ms"], stats[f"bintt_{tag}_ms"] = round(d_ms, 4), round(l_ms, 4)
-            log(f"  bintt_dist 16384 x 512 {tag}: {d_ms:.3f} ms; bintt {l_ms:.3f} ms "
-                f"(CUDA events, mean of 3)")
-        del grid
-        k, px, py, pinf, want = oracle_inputs(torch, np, K, dev, np.random.default_rng(8),
-                                              1 << 22)
-        runs = {"msm_dist": (lambda: msm_dist.msm_dist(k, px, py, pinf, mesh), []),
-                 "msm": (lambda: TM.msm(k, px, py, pinf), [])}
-        for name in ("msm_dist", "msm", "msm", "msm_dist"):  # in turns
-            fn, times = runs[name]
-            t0 = time.perf_counter()
-            got = fn()
-            times.append(round((time.perf_counter() - t0) * 1e3, 3))
-            expect(got == want, f"{name} of 2^22 points (NCCL, 1 rank) == (sum k_i c_i) G")
-        log(f"  msm_dist 2^22 points: {runs['msm_dist'][1]} ms; unsharded MSM "
-            f"{runs['msm'][1]} ms (host clock, in turns, each ending in the host combine)")
-        stats.update({"msm_dist_2^22_ms": runs["msm_dist"][1], "msm_2^22_ms": runs["msm"][1]})
-        c = PM.counts()
-        expect(c["bintt_dist"] > 0 and c["msm_dist"] > 0, f"dist counters above zero {c}")
-        del k, px, py, pinf
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{module} did not finish within {timeout:.0f} s")
     finally:
-        dist.destroy_process_group()
-        shutil.rmtree(tmp, ignore_errors=True)
-    expect(not dist.is_initialized(), "the NCCL group is destroyed")
-    torch.cuda.empty_cache()
-    return stats
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    expect(proc.returncode == 0, f"{module} exits 0 (exit code {proc.returncode})")
+    return out
+
+
+def run_scaling_report(torch):
+    """Phase 5f (i): `utils/scaling_report.py` on the card, one NCCL rank (a
+    subprocess, the real collectives at the main path's largest shapes):
+    `bintt_dist` of a 16384 x 512 grid == `bintt` and, inverse, back to the
+    grid; `msm_dist` of 2^22 points c_i G and the unsharded MSM == the O(1)
+    oracle (sum k_i c_i) G (the report raises on any mismatch); each timed.
+    It writes the report's default file, which phase 7's bench reads.
+    -> the report."""
+    out = run_module("tokamak_zk_evm_tpu_torch.utils.scaling_report", [], 600,
+                     dict(os.environ, SCALE_MSM_LOG2="22"))
+    report = json.loads(out.strip().splitlines()[-1])
+    expect(report["platform"] == "cuda" and report["backend"] == "nccl" and report["world"] == 1,
+           "the report ran on one NCCL rank on the card")
+    expect(report["device"]["name"] == torch.cuda.get_device_name(0), "the report names the card")
+    calls = report["dist_calls"]
+    expect(calls["bintt_dist"] > 0 and calls["msm_dist"] > 0, f"dist counters above zero {calls}")
+    rows = {(r["op"], r["n_devices"], r["sharded"]) for r in report["rows"]}
+    expect(rows == {(op, 1, sharded) for op in ("bintt_16384x512", "msm_2^22")
+                    for sharded in (False, True)},
+           f"the report's rows: each op unsharded and on a one-rank mesh {sorted(rows)}")
+    for r in report["rows"]:
+        log(f"  {r['op']} {'bintt_dist / msm_dist' if r['sharded'] else 'unsharded'}, "
+            f"{r['n_devices']} rank: {r['seconds'] * 1e3:.3f} ms (efficiency "
+            f"{r['efficiency']:.3f}; one rank: cost, not scaling)")
+    return report
+
+
+# the bench's default ladder on a machine with no warm marker, in order
+BENCH_METRICS = ("prove_wall_clock_small_synthetic_n256_smax32",
+                 "prove_wall_clock_mid_synthetic_n1024_smax64",
+                 "prove_wall_clock_full_synthetic_n4096_smax256")
+
+
+def run_bench(torch, K, report) -> tuple[list[str], dict]:
+    """Phase 7: `python -m tokamak_zk_evm_tpu_torch.bench` (a subprocess),
+    its default ladder with verification on, a budget that fits this run
+    and a cache of its own (deleted after): every rung must bank a line of
+    `bench.py`'s form naming the card, whose proof verified; the full rung's
+    timed prove must have launched K1, K2, K3, K4's MSM stages and B6 and
+    not K5, its proof must hash to the JAX package's pinned digest, its
+    2^22-point MSM probe must have met the oracle, and its mesh table must
+    be phase 5f's report.  -> (the three lines, the full rung's launches)."""
+    import shutil
+    import tempfile
+
+    from tokamak_zk_evm_tpu_torch.testing.synthetic import FULLSHAPE_PROOF_SHA256
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_7_", dir=os.path.join(ROOT, ".cache"))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TOKAMAK_BENCH_")}
+    env.update(TOKAMAK_BENCH_VERIFY="1", TOKAMAK_BENCH_BUDGET_S="480", TOKAMAK_BENCH_CACHE=cache)
+    try:
+        out = run_module("tokamak_zk_evm_tpu_torch.bench", [], 600, env)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    got = [json.loads(ln) for ln in lines]
+    expect([g["metric"] for g in got] == list(BENCH_METRICS),
+           f"the ladder banked small, mid and full ({[g['metric'] for g in got]})")
+    card = {"name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
+    for g in got:
+        d = g["detail"]
+        expect(set(g) == {"metric", "value", "unit", "vs_baseline", "detail"},
+               f"{g['metric']}: bench.py's five keys")
+        expect(g["unit"] == "s" and g["value"] > 0 and g["vs_baseline"] == 0.0,
+               f"{g['metric']}: a time in s, vs_baseline 0.0 (a synthetic circuit)")
+        expect({k: d["device"][k] for k in card} == card, f"{g['metric']}: names the card")
+        expect(d["verify_snark"] is True and d["peak_device_memory_bytes"] > 0
+               and {"build", "encode", "prove"} <= set(d["spans"]),
+               f"{g['metric']}: verified, peak memory and the prover's span categories")
+        log(f"  {g['metric']}: {g['value']} s, spans {json.dumps(d['spans'])}, peak "
+            f"{d['peak_device_memory_bytes'] / 2**30:.3f} GiB ({d['device']['name']}, "
+            f"{d['device']['power_limit']})")
+    full = got[-1]["detail"]
+    log("  full rung's timed prove, kernels " + json.dumps(full["launches"]) + "; host "
+        + json.dumps(full["host_usage"]))
+    expect_launches(full["launches"], [K.FR_EW.name, K.FIELD_INV.name, K.BATCH_INV.name,
+                                       K.NTT.name, K.MSM_BUCKET_SUM.name, K.MSM_WINDOW.name,
+                                       K.FR_SCAN.name],
+                    [K.AFF_PRE.name, K.AFF_POST.name], "bench's full rung (7)")
+    expect(full["proof_sha256"] == FULLSHAPE_PROOF_SHA256,
+           f"full rung proof digest {full['proof_sha256'][:16]}... is the JAX package's pinned one")
+    expect(full["msm_2p22_oracle"] is True and full["msm_2p22_s"] > 0 and full["bintt_2p23_s"] > 0,
+           "full rung: the 2^22 MSM probe met (sum k_i c_i) G, the 2^23 biNTT probe ran")
+    expect(full["scaling"]["mesh_efficiency"]["rows"] == report["rows"],
+           "full rung: its mesh table is phase 5f's scaling report")
+    log(f"  full rung per-op: MSM 2^22 {full['msm_2p22_s']:.4f} s, biNTT 2^23 "
+        f"{full['bintt_2p23_s']:.4f} s")
+    return lines, full["launches"]
 
 
 def dist_rank(rank: int, world: int, store: str, out) -> None:
@@ -1987,9 +2055,9 @@ def main() -> int:
                                      K.BATCH_INV.name, K.MSM_BUCKET_SUM.name, K.MSM_WINDOW.name],
                     [], "ceremony path (5e)")
 
-    log(f"[5f] the multi-device path ({gpu_line()}): (i) one rank over NCCL")
+    log(f"[5f] the multi-device path ({gpu_line()}): (i) the scaling report, one rank over NCCL")
     t0 = time.perf_counter()
-    nccl_stats = drive_nccl_one(torch, np, K, dev)
+    report = run_scaling_report(torch)
     log(f"  (i) {time.perf_counter() - t0:.3f} s")
     log("[5f] (ii) two ranks sharing the card over gloo prove the synthetic full shape")
     ranks_f = drive_gloo_two(torch, K, proof_zero)
@@ -2014,11 +2082,23 @@ def main() -> int:
         if r["name"] in b13:
             r["launches_5"] = counts_5[r["name"]]
     binv_row["widths_5"] = calls["batch_inv"]
-    next(r for r in rows if r["name"] == K.NTT.name)["nccl_one_rank_5f"] = nccl_stats
+    next(r for r in rows if r["name"] == K.NTT.name)["nccl_one_rank_5f"] = report["rows"]
     binv_row["widths_5b"] = calls_b["batch_inv"]
+
+    gc.collect()  # the earlier phases' tensors: the bench finds the card as a user's would
+    torch.cuda.empty_cache()
+    log(f"[7] the bench's ladder ({gpu_line()}); this process holds "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB on the card")
+    t0 = time.perf_counter()
+    bench_lines, counts_7 = run_bench(torch, K, report)
+    log(f"  {time.perf_counter() - t0:.3f} s")
+    for r in rows:
+        r["launches_7"] = counts_7[r["name"]]
     kernels_line = json.dumps({"kernels": rows})
 
     log(f"total {time.perf_counter() - t_all:.3f} s")
+    for line in bench_lines:
+        print(line)
     print(gpu_line())
     print(kernels_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,14 +1,16 @@
 """The port stands alone: no JAX, no JAX package, no silent CPU fallback.
 
 * a subprocess blocks `jax` (and the JAX package) in `sys.modules`, imports
-  the port (the multi-device and frontend modules too), proves the toy
-  fixture on the CPU, reproducing the golden digest, and re-derives its
-  witnesses with the frontend's solver engine and compiled schedule;
+  the port (the multi-device and frontend modules, the bench and the
+  scaling report too), proves the toy fixture on the CPU, reproducing the
+  golden digest, and re-derives its witnesses with the frontend's solver
+  engine and compiled schedule;
 * no file of the port and not `chip_smoke.py` names `jax` or
   `tokamak_zk_evm_tpu` in an import;
-* the entry points (and the CRS loaders, the ceremony's steps, the CLI
-  and `parallel.multihost.init_from_env`) raise without a CUDA device
-  unless given device="cpu";
+* the entry points (and the CRS loaders, the ceremony's steps, the CLI,
+  `parallel.multihost.init_from_env` and the scaling report) raise
+  without a CUDA device unless given device="cpu" (the bench's CLI:
+  `test_torch_bench.py`);
 * the port's copies of the JAX-free host modules agree with the originals,
   the I/O ones (`io/artifacts.py`, `io/rkyv_oracle.py`,
   `io/subcircuit_library.py`) file for file on the toy fixture.
@@ -57,6 +59,8 @@ from tokamak_zk_evm_tpu_torch.frontend import (merkle, r1cs_eval, snapshot, synt
 from tokamak_zk_evm_tpu_torch.host import reference
 from tokamak_zk_evm_tpu_torch.models import witness_solver
 from tokamak_zk_evm_tpu_torch.testing import real_fixture
+from tokamak_zk_evm_tpu_torch import bench
+from tokamak_zk_evm_tpu_torch.utils import scaling_report
 gen = witness_gen.WitnessGenerator(None, fx.infos, fx.library)
 for p in fx.placements:
     info = fx.infos[p.subcircuit_id]
@@ -106,6 +110,7 @@ def _entry_points():
     from tokamak_zk_evm_tpu_torch.cli import main
     from tokamak_zk_evm_tpu_torch.io import crs, rkyv_crs
     from tokamak_zk_evm_tpu_torch.models import mpc_setup as M
+    from tokamak_zk_evm_tpu_torch.utils import scaling_report
 
     fx = build_fixture()
     acc = M.Phase1Accumulator.initial(fx.params)
@@ -124,6 +129,7 @@ def _entry_points():
         "read_combined_sigma": lambda: rkyv_crs.read_combined_sigma("no-such-file", fx.params),
         "cli": lambda: main(["doctor"]),
         "init_from_env": _init_from_env,
+        "scaling_report": lambda: scaling_report.main(["--out", os.devnull]),
     }
 
 
@@ -148,7 +154,7 @@ def _init_from_env():
 @pytest.mark.parametrize("name", ["generate_sigma", "Prover", "preprocess", "Verifier",
                                   "load_sigma", "read_combined_sigma", "cli",
                                   "phase1_compute", "phase1_verify", "phase1_from_json",
-                                  "phase2_prepare", "cli_mpc", "init_from_env"])
+                                  "phase2_prepare", "cli_mpc", "init_from_env", "scaling_report"])
 def test_entry_points_need_cuda_or_cpu_argument(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
