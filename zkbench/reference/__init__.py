@@ -1,0 +1,1 @@
+"""The plain reference that decides `correct`; imports nothing of the program."""
