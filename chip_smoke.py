@@ -761,10 +761,9 @@ def drive(torch, np, K, dev, fx, core, sigma=None):
     p = fx.params
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    timing.reset()
     K.reset_counts()
     t = {}
-    with TM.use_core(core):
+    with TM.use_core(core), timing.tracing():
         if sigma is None:
             t0 = time.perf_counter()
             sigma = generate_sigma(p, Tau.fixed(), fx.library, fx.infos, device=dev)

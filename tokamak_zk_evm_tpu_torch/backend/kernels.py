@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..fields import FQ, FR, Q_MOD, R_MOD
+from ..utils import timing
 from . import build
 from . import limbs
 
@@ -1116,8 +1117,10 @@ def chunk_segments(counts):
     chunk counts), int64."""
     dev = counts.device
     nch = (counts + MSM_CHUNK - 1) // MSM_CHUNK
-    total = int(nch.sum())
-    seg_of = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev), nch)
+    with timing.sync("msm.chunk_segments"):
+        total = int(nch.sum())
+    with timing.sync("msm.repeat_interleave"):
+        seg_of = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev), nch)
     off = torch.arange(total, device=dev) - (torch.cumsum(nch, 0) - nch)[seg_of]
     seg_start = torch.cumsum(counts, 0) - counts
     start = (seg_start[seg_of] + off * MSM_CHUNK).contiguous()
@@ -1175,11 +1178,13 @@ def msm_plan(scalars, pinf):
     digits = _digits(scalars, c, nwin)
     live = (digits != 0) & (pinf.to(torch.int64) == 0)[None, :]
     keys = (torch.arange(nwin, device=dev)[:, None] * nb + digits).reshape(-1)
-    ent = torch.nonzero(live.reshape(-1)).squeeze(1)
+    with timing.sync("msm.nonzero"):
+        ent = torch.nonzero(live.reshape(-1)).squeeze(1)
     k = keys[ent]
     order = torch.argsort(k, stable=True)
     pidx = (ent[order] % N).contiguous()
-    bucket, counts = torch.unique_consecutive(k[order], return_counts=True)
+    with timing.sync("msm.unique_consecutive"):
+        bucket, counts = torch.unique_consecutive(k[order], return_counts=True)
     return c, nwin, pidx, bucket, counts
 
 
@@ -1218,7 +1223,8 @@ def g1_msm_finish(handle):
     from ..host.curve import G1
 
     (X, Y, Z), c = handle
-    rows = torch.stack([X, Y, Z]).cpu().numpy()  # one pull: [3, 24, nwin]
+    with timing.sync("msm.finish_pull"):
+        rows = torch.stack([X, Y, Z]).cpu().numpy()  # one pull: [3, 24, nwin]
     exps, pts = [], []
     for w in range(rows.shape[2]):
         Xi, Yi, Zi = _jac_host(rows[0, :, w], rows[1, :, w], rows[2, :, w])

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..fields import FQ
+from ..utils import timing
 from . import kernels as K
 
 FQ_L = K.FQ_L
@@ -207,7 +208,8 @@ def g1_msm_finish(handle):
 
     acc = G1.infinity
     for sX, sY, c in handle:
-        both = torch.stack([sX, sY]).cpu().numpy()  # one pull: [2, c, 24, W']
+        with timing.sync("msm.finish_pull"):
+            both = torch.stack([sX, sY]).cpu().numpy()  # one pull: [2, c, 24, W']
         exps, pts = [], []
         for w in range(both.shape[3]):
             for lev in range(both.shape[1]):

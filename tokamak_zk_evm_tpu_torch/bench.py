@@ -33,8 +33,9 @@ between two `torch.cuda.synchronize()` calls on the card.  The CRS
 (generated, or loaded from the cache) and the untimed warm-up prove (which
 also takes the first-use nvcc builds and library loads) stay outside it.
 `detail.spans` sums `utils/timing` spans by category over the timed
-region: host-clock spans, each ending when its Python returns, not when the
-card finishes what it queued.  `detail.launches` counts each kernel's
+region, traced with `timing.tracing()` (each nested span counted once):
+host-clock spans, each ending when its Python returns, not when the card
+finishes what it queued.  `detail.launches` counts each kernel's
 launches in the timed region (all zero on the CPU, where the wrappers take
 the plain versions), and `detail.host_usage` this process's CPU seconds and
 garbage collections over it.
@@ -342,11 +343,11 @@ def run_rung(scale: str, dev) -> dict:
     # ---- warm-up prove (first-use builds and loads; the reference excludes them) ----
     if os.environ.get("TOKAMAK_BENCH_WARMUP", "1") == "1":
         log("[bench] warm-up prove ...")
-        timing.reset()
         before = host_usage()
         t0 = time.time()
-        prover().prove()
-        synchronize(dev)
+        with timing.tracing():
+            prover().prove()
+            synchronize(dev)
         log(f"[bench] warm-up done in {time.time() - t0:.1f}s; spans by_name "
             f"{json.dumps({k: round(v, 3) for k, v in timing.summarize()['by_name'].items()})}; "
             f"host {json.dumps(_since(before))}")
@@ -355,14 +356,14 @@ def run_rung(scale: str, dev) -> dict:
     log("[bench] timed prove ...")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    timing.reset()
     synchronize(dev)
     before = host_usage()
     K.reset_counts()
-    t0 = time.perf_counter()
-    proof, _ = prover().prove()
-    synchronize(dev)
-    prove_s = time.perf_counter() - t0
+    with timing.tracing():
+        t0 = time.perf_counter()
+        proof, _ = prover().prove()
+        synchronize(dev)
+        prove_s = time.perf_counter() - t0
     launches = K.counts()
     summ = timing.summarize()
     detail = {"spans": {k: round(v, 3) for k, v in summ["by_category"].items()},

@@ -85,10 +85,13 @@ def _indexed_msm(points_family, scalars_ints, indices):
     if not scalars_ints:
         return None
     px, py, pinf = points_family
-    s = msm_mod.scalars_from_ints(scalars_ints, px.device)
-    idx = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=px.device)
-    return msm_mod.msm(s, px[:, idx].contiguous(), py[:, idx].contiguous(),
-                       pinf[idx].contiguous())
+    with timing.span("binding.pack", n=len(scalars_ints)):
+        s = msm_mod.scalars_from_ints(scalars_ints, px.device)
+        with timing.sync("binding.indices"):
+            idx = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=px.device)
+    with timing.span("binding.msm", points=len(scalars_ints)):
+        return msm_mod.msm(s, px[:, idx].contiguous(), py[:, idx].contiguous(),
+                           pinf[idx].contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -101,21 +104,22 @@ _PUB_BUFFERS_IN = ("bufferPubIn", "bufferBlockIn")
 
 def encode_O_pub_free(sigma, placements, infos, params):
     scalars, idxs = [], []
-    for pl in placements:
-        info = infos[pl.subcircuit_id]
-        if info.name == "bufferEVMIn":
-            continue
-        if info.name in _PUB_BUFFERS_OUT:
-            start, cnt = info.Out_idx
-        elif info.name in _PUB_BUFFERS_IN:
-            start, cnt = info.In_idx
-        else:
-            continue
-        for j in range(start, start + cnt):
-            v = pl.variables[j]
-            if v:
-                scalars.append(v % R_MOD)
-                idxs.append(info.flattenMap[j])
+    with timing.span("binding.pack"):
+        for pl in placements:
+            info = infos[pl.subcircuit_id]
+            if info.name == "bufferEVMIn":
+                continue
+            if info.name in _PUB_BUFFERS_OUT:
+                start, cnt = info.Out_idx
+            elif info.name in _PUB_BUFFERS_IN:
+                start, cnt = info.In_idx
+            else:
+                continue
+            for j in range(start, start + cnt):
+                v = pl.variables[j]
+                if v:
+                    scalars.append(v % R_MOD)
+                    idxs.append(info.flattenMap[j])
     return _indexed_msm(sigma.sigma_1.gamma_inv_o_inst, scalars, idxs)
 
 
@@ -138,15 +142,16 @@ def _encode_statement(points_family, lo, hi, offset_cols, placements, infos, s_m
     """Zero scalars are dropped before packing: an MSM term with k=0
     contributes nothing, and buffer placements are mostly zero-padded."""
     scalars, idxs = [], []
-    for i, pl in enumerate(placements):
-        info = infos[pl.subcircuit_id]
-        sel, rows = _stmt_wires(info, lo, hi)
-        var = pl.variables
-        for j, g in zip(sel.tolist(), rows.tolist()):
-            v = var[j]
-            if v:
-                scalars.append(v % R_MOD)
-                idxs.append(g * s_max + i)
+    with timing.span("binding.pack"):
+        for i, pl in enumerate(placements):
+            info = infos[pl.subcircuit_id]
+            sel, rows = _stmt_wires(info, lo, hi)
+            var = pl.variables
+            for j, g in zip(sel.tolist(), rows.tolist()):
+                v = var[j]
+                if v:
+                    scalars.append(v % R_MOD)
+                    idxs.append(g * s_max + i)
     return _indexed_msm(points_family, scalars, idxs)
 
 
@@ -243,57 +248,64 @@ class Prover:
     ):
         import os as _os
 
-        self.device = dev = resolve_device(device)
-        self.testing_mode = testing_mode or _os.environ.get("TZK_TESTING_MODE") == "1"
-        self._test_rng = np.random.default_rng(0x7E57)
-        params.validate()
-        self.params = params
-        self.sigma = sigma
-        self.placements = placements
-        self.infos = infos
-        n, s_max, m_i = params.n, params.s_max, params.m_i
+        self.proof_id = timing.new_proof()
+        with timing.span("prover.init", "build", proof=self.proof_id):
+            self.device = dev = resolve_device(device)
+            self.testing_mode = testing_mode or _os.environ.get("TZK_TESTING_MODE") == "1"
+            self._test_rng = np.random.default_rng(0x7E57)
+            params.validate()
+            self.params = params
+            self.sigma = sigma
+            self.placements = placements
+            self.infos = infos
+            n, s_max, m_i = params.n, params.s_max, params.m_i
 
-        with timing.span("init.witness", "build", n=n, s_max=s_max, m_i=m_i):
-            # witness polynomials (init phase, lib.rs:736-775)
-            self.bXY = W.gen_bXY(placements, infos, params, dev)
-            self.uXY = W.gen_uXY(placements, library, params, dev)
-            self.vXY = W.gen_vXY(placements, library, params, dev)
-            self.wXY = W.gen_wXY(placements, library, params, dev)
-            self.rXY = None
+            with timing.span("init.witness", n=n, s_max=s_max, m_i=m_i):
+                # witness polynomials (init phase, lib.rs:736-775)
+                with timing.span("witness.bXY"):
+                    self.bXY = W.gen_bXY(placements, infos, params, dev)
+                with timing.span("witness.uXY"):
+                    self.uXY = W.gen_uXY(placements, library, params, dev)
+                with timing.span("witness.vXY"):
+                    self.vXY = W.gen_vXY(placements, library, params, dev)
+                with timing.span("witness.wXY"):
+                    self.wXY = W.gen_wXY(placements, library, params, dev)
+                self.rXY = None
 
-            # instance polynomials (lib.rs:822-914)
-            self.a_free_X = W.gen_a_free_X(instance, params, dev)
-            self.t_n = W.vanishing_poly_x(n, dev)
-            self.t_mi = W.vanishing_poly_x(m_i, dev)
-            self.t_smax = W.vanishing_poly_y(s_max, dev)
-            self.s0XY, self.s1XY = W.permutation_to_polys(permutation, m_i, s_max, dev)
+                # instance polynomials (lib.rs:822-914)
+                with timing.span("witness.instance"):
+                    self.a_free_X = W.gen_a_free_X(instance, params, dev)
+                    self.t_n = W.vanishing_poly_x(n, dev)
+                    self.t_mi = W.vanishing_poly_x(m_i, dev)
+                    self.t_smax = W.vanishing_poly_y(s_max, dev)
+                    self.s0XY, self.s1XY = W.permutation_to_polys(permutation, m_i, s_max,
+                                                                  dev)
 
-        if mixer is None:
-            mixer = Mixer.random(rng) if rng is not None else Mixer.zero()
-        self.mixer = mixer
-        _check_mixer(mixer)
+            if mixer is None:
+                mixer = Mixer.random(rng) if rng is not None else Mixer.zero()
+            self.mixer = mixer
+            _check_mixer(mixer)
 
-        self.q0 = self.q1 = self.q2 = self.q3 = None
-        self._w_zk = None
-        self._term_b_zk = None
-        self._lagrange_kl = None
+            self.q0 = self.q1 = self.q2 = self.q3 = None
+            self._w_zk = None
+            self._term_b_zk = None
+            self._lagrange_kl = None
 
-        with timing.span("init.binding", "build"):
-            self.binding = self._compute_binding()
-
+            with timing.span("init.binding"):
+                self.binding = self._compute_binding()
 
     # -- binding (lib.rs:1083-1167) ------------------------------------
     def _compute_binding(self) -> Binding:
         from ..host.curve import G1
 
         sp, sigma, mix = self.params, self.sigma, self.mixer
-        A_free = encode_poly(sigma, self.a_free_X, sp)
+        with timing.span("binding.msm"):
+            A_free = encode_poly(sigma, self.a_free_X, sp)
         O_pub_free = encode_O_pub_free(sigma, self.placements, self.infos, sp)
         O_mid_core = encode_O_mid_no_zk(sigma, self.placements, self.infos, sp)
         O_prv_core = encode_O_prv_no_zk(sigma, self.placements, self.infos, sp)
 
         s1 = sigma.sigma_1
-        O_mid = _g1_add(O_mid_core, _g1_mul(s1.delta, mix.rO_mid))
         zk_terms = [
             (s1.eta, (-mix.rO_mid) % R_MOD),
             (s1.delta_inv_alphak_xh_tx[0][0], mix.rU_X),
@@ -311,13 +323,13 @@ class Prover:
             (s1.delta_inv_alphak_yi_ty[3][0], mix.rB_Y[0]),
             (s1.delta_inv_alphak_yi_ty[3][1], mix.rB_Y[1]),
         ]
-        O_prv = G1.from_affine(O_prv_core)
-        for p, k in zk_terms:
-            O_prv = G1.add(O_prv, G1.scalar_mul(G1.from_affine(p), k % R_MOD))
-        return Binding(
-            A_free=A_free, O_pub_free=O_pub_free, O_mid=O_mid,
-            O_prv=G1.to_affine(O_prv),
-        )
+        with timing.span("binding.host_curve"):
+            O_mid = _g1_add(O_mid_core, _g1_mul(s1.delta, mix.rO_mid))
+            O_prv = G1.from_affine(O_prv_core)
+            for p, k in zk_terms:
+                O_prv = G1.add(O_prv, G1.scalar_mul(G1.from_affine(p), k % R_MOD))
+            O_prv = G1.to_affine(O_prv)
+        return Binding(A_free=A_free, O_pub_free=O_pub_free, O_mid=O_mid, O_prv=O_prv)
 
     def _encode(self, poly: BiPoly):
         return encode_poly(self.sigma, poly, self.params)
@@ -785,28 +797,33 @@ class Prover:
 
     # -- full pipeline (prove/src/main.rs flow) -------------------------
     def prove(self) -> tuple[Proof, Proof4Test]:
-        _check_mixer(self.mixer)
-        manager = TranscriptManager()
-        with timing.span("prove0", "prove"):
-            proof0 = self.prove0()
-        manager.add_proof0(proof0)
-        thetas = manager.get_thetas()
-        with timing.span("prove1", "prove"):
-            proof1 = self.prove1(thetas)
-        manager.add_proof1(proof1)
-        kappa0 = manager.get_kappa0()
-        with timing.span("prove2", "prove"):
-            proof2 = self.prove2(thetas, kappa0)
-        manager.add_proof2(proof2)
-        chi, zeta = manager.get_chi_zeta()
-        with timing.span("prove3", "prove"):
-            proof3 = self.prove3(chi, zeta)
-        manager.add_proof3(proof3)
-        kappa1 = manager.get_kappa1()
-        with timing.span("prove4", "prove"):
-            proof4, proof4_test = self.prove4(
-                proof3, thetas, kappa0, chi, zeta, kappa1
-            )
+        with timing.span("prover.prove", "prove", proof=self.proof_id):
+            _check_mixer(self.mixer)
+            manager = TranscriptManager()
+            with timing.span("prove0", "prove"):
+                proof0 = self.prove0()
+                with timing.span("transcript"):
+                    manager.add_proof0(proof0)
+                    thetas = manager.get_thetas()
+            with timing.span("prove1", "prove"):
+                proof1 = self.prove1(thetas)
+                with timing.span("transcript"):
+                    manager.add_proof1(proof1)
+                    kappa0 = manager.get_kappa0()
+            with timing.span("prove2", "prove"):
+                proof2 = self.prove2(thetas, kappa0)
+                with timing.span("transcript"):
+                    manager.add_proof2(proof2)
+                    chi, zeta = manager.get_chi_zeta()
+            with timing.span("prove3", "prove"):
+                proof3 = self.prove3(chi, zeta)
+                with timing.span("transcript"):
+                    manager.add_proof3(proof3)
+                    kappa1 = manager.get_kappa1()
+            with timing.span("prove4", "prove"):
+                proof4, proof4_test = self.prove4(
+                    proof3, thetas, kappa0, chi, zeta, kappa1
+                )
         return (
             Proof(binding=self.binding, proof0=proof0, proof1=proof1,
                   proof2=proof2, proof3=proof3, proof4=proof4),

@@ -14,6 +14,7 @@ import torch
 from ..fields import FR, R_MOD, fr_root_of_unity
 from ..ops import field as F
 from ..ops.poly import BiPoly
+from ..utils import timing
 from .protocol import Instance, PermutationEntry, Placement, SetupParams, SubcircuitInfo, SubcircuitR1CS
 
 
@@ -32,19 +33,20 @@ def gen_bXY(placements: list[Placement], infos: list[SubcircuitInfo],
     columns = placements; only nonzero variables are packed."""
     m_i, s_max, l, l_d = params.m_i, params.s_max, params.l, params.l_D
     rows, cols, vals = [], [], []
-    for i, pl in enumerate(placements):
-        fm = infos[pl.subcircuit_id].flattenMap
-        if len(fm) != len(pl.variables):
-            raise ValueError("corrupted placement variables")
-        garr = np.asarray(fm, dtype=np.int64)
-        varr = np.asarray(pl.variables, dtype=object)
-        sel = (garr >= l) & (garr < l_d) & (varr != 0)
-        rows.append(garr[sel] - l)
-        cols.append(np.full(int(sel.sum()), i, np.int64))
-        vals.extend(varr[sel].tolist())
-    grid = np.zeros((F.FR_L, m_i, s_max), np.int32)
-    if vals:
-        grid[:, np.concatenate(rows), np.concatenate(cols)] = _pack_mont_dedup(vals)
+    with timing.span("witness.pack"):
+        for i, pl in enumerate(placements):
+            fm = infos[pl.subcircuit_id].flattenMap
+            if len(fm) != len(pl.variables):
+                raise ValueError("corrupted placement variables")
+            garr = np.asarray(fm, dtype=np.int64)
+            varr = np.asarray(pl.variables, dtype=object)
+            sel = (garr >= l) & (garr < l_d) & (varr != 0)
+            rows.append(garr[sel] - l)
+            cols.append(np.full(int(sel.sum()), i, np.int64))
+            vals.extend(varr[sel].tolist())
+        grid = np.zeros((F.FR_L, m_i, s_max), np.int32)
+        if vals:
+            grid[:, np.concatenate(rows), np.concatenate(cols)] = _pack_mont_dedup(vals)
     return BiPoly.from_rou_evals(F.tensor(grid, device))
 
 
@@ -105,14 +107,17 @@ def _gen_qap_xy(placements: list[Placement], library: list[SubcircuitR1CS],
             continue
         T = W.shape[0]
         vals = []
-        for i in idxs:
-            varr = np.asarray(placements[i].variables, dtype=object)
-            vals.extend(varr[W].tolist())
-        V = F.tensor(_pack_mont_dedup(vals).reshape(F.FR_L, len(idxs), T), device)
+        with timing.span("witness.pack", placements=len(idxs), wires=T):
+            for i in idxs:
+                varr = np.asarray(placements[i].variables, dtype=object)
+                vals.extend(varr[W].tolist())
+            packed = _pack_mont_dedup(vals).reshape(F.FR_L, len(idxs), T)
+        V = F.tensor(packed, device)
         prod = F.fr_mul(V, C_mont)  # cyclic suffix broadcast over placements
         flat = (Kc[None, :] * s_max + np.asarray(idxs, np.int64)[:, None]).reshape(-1)
-        acc.index_add_(1, torch.as_tensor(flat, device=device),
-                       prod.reshape(F.FR_L, -1).to(torch.int64))
+        with timing.sync("witness.scatter_index"):
+            flat = torch.as_tensor(flat, device=device)
+        acc.index_add_(1, flat, prod.reshape(F.FR_L, -1).to(torch.int64))
     grid = _reduce_u32_grid(acc & 0xFFFFFFFF).reshape(F.FR_L, n, s_max)
     return BiPoly.from_rou_evals(grid)
 

@@ -19,6 +19,7 @@ import torch
 
 from ..backend import kernels as K
 from ..fields import FQ, FR, FieldSpec, R_MOD
+from ..utils import timing
 
 FR_L = FR.n_limbs  # 16
 FQ_L = FQ.n_limbs  # 24
@@ -47,7 +48,8 @@ def _pack(spec: FieldSpec, ints, mont: bool) -> np.ndarray:
 
 def _host(limbs) -> np.ndarray:
     if isinstance(limbs, torch.Tensor):
-        return limbs.detach().cpu().numpy()
+        with timing.sync("field.host"):
+            return limbs.detach().cpu().numpy()
     return np.asarray(limbs)
 
 
@@ -106,7 +108,8 @@ def tensor(x, device) -> torch.Tensor:
     """A host array or a tensor as an int32 tensor on `device`."""
     if isinstance(x, torch.Tensor):
         return x.to(device)
-    return torch.as_tensor(np.asarray(x, dtype=np.int32), device=device)
+    with timing.sync("field.tensor"):
+        return torch.as_tensor(np.asarray(x, dtype=np.int32), device=device)
 
 
 def fr_one(shape, device) -> torch.Tensor:

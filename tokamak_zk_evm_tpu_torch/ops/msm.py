@@ -23,11 +23,13 @@ from __future__ import annotations
 import contextlib
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..backend import kernels as K
 from ..backend import msm_affine as MA
 from ..fields import R_MOD
+from ..utils import timing
 from . import field as F
 
 CORES = ("pippenger", "affine_tree")
@@ -93,7 +95,9 @@ def finish_rows(handle):
 
 
 def rows_jacobian(rows):
-    """[3, 24] jacobian Montgomery rows -> host jacobian (X, Y, Z) ints."""
+    """[3, 24] jacobian Montgomery rows (on the host) -> host jacobian
+    (X, Y, Z) ints."""
+    rows = np.asarray(rows)
     return tuple(int(F.unpack_fq(rows[i].reshape(24, 1))[0]) for i in range(3))
 
 
@@ -102,7 +106,8 @@ def msm_finish(handle):
 
     if isinstance(handle, Done):
         return handle.point
-    return G1.to_affine(rows_jacobian(finish_rows(handle)))
+    with timing.span("msm.finish"):
+        return G1.to_affine(rows_jacobian(finish_rows(handle)))
 
 
 def msm(scalars_canonical, px, py, pinf):

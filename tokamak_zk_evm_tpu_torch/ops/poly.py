@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..fields import R_MOD
+from ..utils import timing
 from . import field as F
 from . import ntt as ntt_mod
 
@@ -115,7 +116,8 @@ class BiPoly:
         ar_y = torch.arange(cols.shape[0], device=nz.device)
         xi = torch.where(rows, ar_x, -1).max()
         yi = torch.where(cols, ar_y, -1).max()
-        xd, yd = (int(v) for v in torch.stack([xi, yi]).cpu())
+        with timing.sync("poly.find_degree"):
+            xd, yd = (int(v) for v in torch.stack([xi, yi]).cpu())
         self.x_degree, self.y_degree = xd, yd
         return xd, yd
 
