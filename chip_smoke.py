@@ -14,8 +14,9 @@ Phases, in order (any mismatch or exception exits non-zero):
      reduce), the NTT build its pass kernel, the G1 build its fixed-base
      kernel, the G1 ops build B13's three (add, doubling, to-affine) and
      the four probes of `utils/bench_g1.py`, the inversion build its six
-     (three a field) and the scan build B6's one (`scan_kernel`: one pass,
-     a decoupled look-back), each with no stack frame and no spills;
+     (three a field), the scan build B6's one (`scan_kernel`: one pass,
+     a decoupled look-back) and the CRS decode build its one
+     (`crs_decode_kernel`), each with no stack frame and no spills;
   3. each kernel against its plain PyTorch version on the card, exact:
      K1 on Fr and Fq batches holding 0, 1 and p-1; K2's inversion at 1 and
      4096 elements and its batch inversion at 1, 2, its one-launch width
@@ -70,7 +71,8 @@ Phases, in order (any mismatch or exception exits non-zero):
      verify; both CRS formats must load to phase 5's sigma, proof.json must
      be the in-process Mixer.zero() proof and hash to the JAX package's
      pinned digest, verify must print true and, for a proof with one limb
-     changed, false; every kernel of the path but K5 must launch; `python -m
+     changed, false; every kernel of the path but K5 must launch (the CRS
+     decode among them: the CLI reads combined_sigma.rkyv); `python -m
      tokamak_zk_evm_tpu_torch doctor` must pass;
   5g. the frontend's witness path into the file contract, right after 5d in
      its directory: 5d's library read back with `load_library`, every one of
@@ -131,7 +133,8 @@ Phases, in order (any mismatch or exception exits non-zero):
      2^20 (Fr), 2^22, 2^10 and 1 (Fq), and one `g1_aff_add_batch` at 2^22
      lanes, each beside its bound; B6's suffix and prefix scans at 2^20
      (round 1's), beside the K1 doubling chain they replaced; B13's add,
-     doubling and to-affine at 2^22 lanes;
+     doubling and to-affine at 2^22 lanes; the CRS decode at 2^22 entries
+     (infinities, a zero x and an all-ones entry planted);
   7. the bench (`python -m tokamak_zk_evm_tpu_torch.bench`, a subprocess,
      after this process has freed what it held on the card): its default
      ladder small -> mid -> full with TOKAMAK_BENCH_VERIFY=1 and a cache of
@@ -185,6 +188,7 @@ PTXAS_CLEAN = {
     "field_inv": tuple(f"{k}_{f}" for k in ("inv_kernel", "binv_up", "binv_down")
                        for f in ("fr", "fq")),
     "fr_scan": ("scan_kernel",),
+    "crs_decode": ("crs_decode_kernel",),
 }
 
 
@@ -1915,7 +1919,38 @@ def measure(torch, np, K, dev, counts, fixed_sizes):
     log(f"  g1_to_affine (Fq batch inverse + affine kernel) 2^22 lanes: {ms:.3f} ms")
     del P, Q, zi
     torch.cuda.empty_cache()
+    # The rkyv CRS decode at 2^22 entries (a staging chunk holds 2^20, the
+    # largest family 5.57M).  Bound: 96 B read, two 96-byte limb columns and
+    # a 4-byte flag written an entry; two products.
+    n = 1 << 22
+    raw = crs_entries(torch, np, rng, n, dev)
+    outs = ([torch.empty((K.FQ_L, n), dtype=torch.int32, device=dev) for _ in range(2)]
+            + [torch.empty(n, dtype=torch.int32, device=dev)])
+
+    def decode():
+        K.crs_decode(raw, n, *outs, 0)
+        return tuple(outs)
+
+    row(K.CRS_DECODE, "2^22 entries", decode, lambda: K.plain_crs_decode(raw, n),
+        (K.G1_ENTRY_BYTES + 2 * 96 + 4) * n, 2 * FQ_MUL_OPS * n)
+    del raw, outs
+    torch.cuda.empty_cache()
     return rows
+
+
+def crs_entries(torch, np, rng, n: int, dev):
+    """n rkyv G1 entries as uint8 [96 n] on `dev`: random canonical x and y;
+    entries 0 and 7 all zero (infinity), entry 1's x zero, entry 2 all 0xFF."""
+    from tokamak_zk_evm_tpu_torch.fields import FQ
+
+    def half():
+        return np.ascontiguousarray(rand_field(np, rng, FQ, n).T.astype("<u2")).view(np.uint8)
+
+    ent = np.concatenate([half(), half()], 1)
+    ent[[0, 7]] = 0
+    ent[1, :48] = 0
+    ent[2] = 0xFF
+    return torch.as_tensor(ent.reshape(-1), device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -1981,8 +2016,10 @@ def main() -> int:
     # the ceremony's: setup and prove add no jacobian points on the card, and
     # setup's Fq products were its to-affine steps, now B13's affine kernel
     not_needed = b13[:2] + [K.FQ_EW.name]
-    expect_launches(counts, [n for n in counts if n not in affine + not_needed], affine,
-                    "pippenger path")
+    # the CRS decode reads files: phase 5 makes its CRS in memory, 5d reads it
+    expect_launches(counts, [n for n in counts
+                             if n not in affine + not_needed + [K.CRS_DECODE.name]],
+                    affine, "pippenger path")
     log("  batch inversions by width: " + json.dumps(calls["batch_inv"]))
     log(f"[5c] K3 at each of the {len(calls['ntt'])} call signatures of phase 5 "
         f"(grid, axis, tables): kernel == plain, exact")

@@ -568,3 +568,54 @@ def test_toy_ceremony_on_card_matches_cpu(dev):
         assert s1 == c1 and s.sigma_2 == c.sigma_2 and s.lagrange_KL == c.lagrange_KL
     assert acc0.verify(acc, proof1, np.random.default_rng(1), dev)
     assert M.phase2_verify(sigma, cur, proof2, np.random.default_rng(2))
+
+
+def crs_entries(n, seed):
+    """n rkyv G1 entries as uint8 [96 n]: random canonical x and y; entries
+    0 and 7 all zero (infinity), entry 1's x zero, entry 2 all 0xFF (a
+    pattern above q), entry 3's x q - 1."""
+    lim = np.concatenate([rand(FQ, n, seed, "cpu").numpy(), rand(FQ, n, seed + 1, "cpu").numpy()])
+    ent = np.ascontiguousarray(lim.T.astype("<u2")).view(np.uint8).copy()  # [n, 96]
+    ent[[0, 7]] = 0
+    ent[1, :48] = 0
+    ent[2] = 0xFF
+    ent[3, :48] = np.frombuffer((FQ.modulus - 1).to_bytes(48, "little"), np.uint8)
+    return torch.from_numpy(ent.reshape(-1))
+
+
+@pytest.mark.parametrize("n,off", [(8, 0), (255, 0), (257, 3), (3 * 4099, 17)])
+def test_crs_decode_kernel(dev, n, off):
+    """One launch into columns [off, off + n) of a wider family == the plain
+    decode; the other columns untouched."""
+    raw = crs_entries(n, 40 + n)
+    width = off + n + 5
+    outs = [torch.full((FQ.n_limbs, width), -1, dtype=torch.int32, device=dev) for _ in range(2)]
+    outs.append(torch.full((width,), -1, dtype=torch.int32, device=dev))
+    before = K.CRS_DECODE.launches
+    K.crs_decode(raw.to(dev), n, *outs, off)
+    assert K.CRS_DECODE.launches == before + 1
+    want = K.plain_crs_decode(raw, n)
+    for got, w in zip(outs, want):
+        got = got.cpu()
+        assert torch.equal(got[..., off:off + n], w)
+        assert bool((got[..., :off] == -1).all()) and bool((got[..., off + n:] == -1).all())
+    assert want[2][:8].tolist() == [1, 0, 0, 0, 0, 0, 0, 1]
+
+
+@pytest.mark.parametrize("chunk", [7, 1 << 20])
+def test_crs_family_loader_on_card(dev, tmp_path, chunk):
+    """The loader on the card (pinned staging, copies without waiting, the
+    kernel) == on the CPU (the plain decode), over one section and over
+    sections apart, with a staging chunk smaller than a section."""
+    from tokamak_zk_evm_tpu_torch.io import rkyv_crs as RK
+
+    n = 4099
+    path = tmp_path / "entries.bin"
+    path.write_bytes(b"\x05" * 8 + crs_entries(n, 60).numpy().tobytes())
+    sections = ([(8, n)], [(8 + 96 * 100, 50), (8, 100), (8 + 96 * 150, n - 150)])
+    with open(path, "rb") as f:
+        size = path.stat().st_size
+        for secs in sections:
+            got = RK._FamilyLoader(f.fileno(), size, dev, chunk).family(secs)
+            want = RK._FamilyLoader(f.fileno(), size, torch.device("cpu"), chunk).family(secs)
+            assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))

@@ -12,6 +12,7 @@ per module by each package; the port runs on the CPU.  Tolerance: exact.
 import hashlib
 import json
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -21,7 +22,7 @@ from tokamak_zk_evm_tpu.io import crs as JCRS
 from tokamak_zk_evm_tpu.io import rkyv_crs as JRK
 from tokamak_zk_evm_tpu.models.setup import Tau as JTau, generate_sigma as j_generate_sigma
 from tokamak_zk_evm_tpu.testing.fixtures import build_fixture as j_build_fixture
-from tokamak_zk_evm_tpu_torch.fields import R_MOD
+from tokamak_zk_evm_tpu_torch.fields import FQ, R_MOD
 from tokamak_zk_evm_tpu_torch.io import crs as TCRS
 from tokamak_zk_evm_tpu_torch.io import rkyv_crs as RK
 from tokamak_zk_evm_tpu_torch.io.artifacts import (
@@ -32,7 +33,9 @@ from tokamak_zk_evm_tpu_torch.models.protocol import (
     Binding, Proof, Proof0, Proof1, Proof2, Proof3, Proof4,
 )
 from tokamak_zk_evm_tpu_torch.models.setup import Tau, generate_sigma
+from tokamak_zk_evm_tpu_torch.ops import field as F
 from tokamak_zk_evm_tpu_torch.testing.fixtures import GOLDEN_PROOF_SHA256, build_fixture
+from tokamak_zk_evm_tpu_torch.utils import timing
 
 # The plain versions issue many small ops; one intra-op thread per test
 # process keeps parallel test workers from oversubscribing the cores.
@@ -174,6 +177,169 @@ def test_prove_on_rkyv_loaded_sigma(tmp_path, world):
     assert hashlib.sha256(canonical_proof_bytes(proof)).hexdigest() == GOLDEN_PROOF_SHA256
     assert Verifier(fx.params, got, pre, fx.instance, proof, rng=np.random.default_rng(5),
                     device="cpu").verify_snark()
+
+
+def old_g1_family(data: bytes, pos: int, n: int):
+    """The reader's decode before the device one, kept as the oracle: numpy
+    byte shuffles to [24, n] canonical limb columns, then one Fq product by
+    R^2 (`F.fq_mul`)."""
+    raw = np.frombuffer(data, dtype=np.uint8, count=n * 96, offset=pos).reshape(n, 96)
+    r2 = F.tensor(np.array(FQ.to_limbs(FQ.R2_mod), np.int32).reshape(FQ.n_limbs, 1), "cpu")
+
+    def cols(half):
+        limbs = half.copy().view("<u2").astype(np.int32).T  # [24, n]
+        return F.fq_mul(torch.from_numpy(np.ascontiguousarray(limbs)), r2)
+
+    inf = ~np.any(raw, axis=1)
+    return cols(raw[:, :48]), cols(raw[:, 48:]), torch.from_numpy(inf.astype(np.int32))
+
+
+def old_families(data: bytes, params, preprocess: bool = False, mode: str = "align_desc"):
+    """{family: (px, py, pinf)} of an archive by the old decode, every
+    vec-of-vecs row by row."""
+    buf = memoryview(data)
+    struct_name, s1_name, field = (("SigmaPreprocessRkyv", "PartialSigma1Rkyv", "sigma_1")
+                                   if preprocess else ("SigmaRkyv", "Sigma1Rkyv", "sigma_1"))
+    size, _ = RK.struct_layout(struct_name, mode).size_align
+    base = len(data) - size + RK.struct_layout(struct_name, mode).offsets[field][0]
+    lay = RK.struct_layout(s1_name, mode).offsets
+    out = {}
+    for name in FAMILIES[:2] if preprocess else FAMILIES:
+        pos, n = RK._read_vec_header(buf, base + lay[name][0])
+        if name in FAMILIES[:2]:
+            out[name] = old_g1_family(data, pos, n)
+            continue
+        rows = [old_g1_family(data, *RK._read_vec_header(buf, pos + 8 * r)) for r in range(n)]
+        out[name] = (torch.cat([r[0] for r in rows], 1), torch.cat([r[1] for r in rows], 1),
+                     torch.cat([r[2] for r in rows]))
+    return out
+
+
+def swap_first_rows(data: bytes, params, field: str, mode: str = "align_desc") -> bytes:
+    """The archive with rows 0 and 1 of a vec-of-vecs family swapped in the
+    file and their headers swapped to match: the same Sigma, rows no longer
+    contiguous."""
+    out = bytearray(data)
+    size, _ = RK.struct_layout("SigmaRkyv", mode).size_align
+    base = len(data) - size + RK.struct_layout("SigmaRkyv", mode).offsets["sigma_1"][0]
+    opos, _ = RK._read_vec_header(memoryview(data), base +
+                                  RK.struct_layout("Sigma1Rkyv", mode).offsets[field][0])
+    (p0, n0), (p1, n1) = (RK._read_vec_header(memoryview(data), opos + 8 * r) for r in (0, 1))
+    row = 96 * n0
+    out[p0:p0 + row], out[p1:p1 + row] = data[p1:p1 + row], data[p0:p0 + row]
+    out[opos:opos + 8] = struct.pack("<iI", p1 - opos, n0)
+    out[opos + 8:opos + 16] = struct.pack("<iI", p0 - opos - 8, n1)
+    return bytes(out)
+
+
+def zero_entries(data: bytes, params, mode: str = "align_desc") -> bytes:
+    """The archive with entry 3 of xy_powers and the last entry of
+    delta_inv_li_o_prv set to all zero bytes (infinity), and the x half of
+    entry 5 of xy_powers zeroed (not infinity: y is not)."""
+    out = bytearray(data)
+    size, _ = RK.struct_layout("SigmaRkyv", mode).size_align
+    base = len(data) - size + RK.struct_layout("SigmaRkyv", mode).offsets["sigma_1"][0]
+    lay = RK.struct_layout("Sigma1Rkyv", mode).offsets
+    xy, _ = RK._read_vec_header(memoryview(data), base + lay["xy_powers"][0])
+    opos, rows = RK._read_vec_header(memoryview(data), base + lay["delta_inv_li_o_prv"][0])
+    last, n = RK._read_vec_header(memoryview(data), opos + 8 * (rows - 1))
+    for p in (xy + 96 * 3, last + 96 * (n - 1)):
+        out[p:p + 96] = bytes(96)
+    out[xy + 96 * 5:xy + 96 * 5 + 48] = bytes(48)
+    return bytes(out)
+
+
+@pytest.mark.parametrize("case", ["contiguous", "rows", "infinity", "chunk", "preprocess"])
+def test_device_decode_equals_old_decode(tmp_path, world, case):
+    """The mapped reader's families (staged chunks, `kernels.crs_decode`'s
+    plain version on the CPU) equal the old numpy decode bit for bit: on
+    contiguous sections, on rows laid out apart, with all-zero entries, with
+    a staging chunk of 7 entries (smaller than a section, dividing none),
+    and for sigma_preprocess.rkyv; the counters give the bytes staged and
+    the sections read row by row."""
+    sigma, params = world["sigma"], world["params"]
+    path = str(tmp_path / "archive.rkyv")
+    if case == "preprocess":
+        RK.write_sigma_preprocess(sigma, params, path)
+    else:
+        RK.write_combined_sigma(sigma, params, path)
+    data = open(path, "rb").read()
+    if case in ("rows", "infinity"):
+        data = (swap_first_rows(data, params, "delta_inv_li_o_prv") if case == "rows"
+                else zero_entries(data, params))
+        open(path, "wb").write(data)
+    want = old_families(data, params, preprocess=case == "preprocess")
+    chunk = 7 if case == "chunk" else RK.STAGE_POINTS
+    parse = RK._parse_preprocess if case == "preprocess" else RK._parse_combined
+    with timing.tracing():
+        got = RK._load(path, parse, params, "auto", torch.device("cpu"), chunk_points=chunk)
+        counts = timing.snapshot().counts
+    if case == "preprocess":
+        got_families = dict(zip(FAMILIES[:2], got[:2]))
+        assert got[2:] == (sigma.sigma_1.h_max, sigma.sigma_1.rs_y)
+    else:
+        got_families = {f: getattr(got.sigma_1, f) for f in FAMILIES}
+    assert set(got_families) == set(want)
+    for f, fam in got_families.items():
+        assert all(a.dtype == torch.int32 for a in fam), f
+        assert all(torch.equal(a, b) for a, b in zip(fam, want[f])), f
+        if case != "infinity":
+            assert families_equal(fam, getattr(sigma.sigma_1, f)), f
+    if case == "infinity":
+        for fam, col in ((got.sigma_1.xy_powers, 3), (got.sigma_1.delta_inv_li_o_prv, -1)):
+            assert int(fam[2][col]) == 1 and not fam[0][:, col].any() and not fam[1][:, col].any()
+        assert int(got.sigma_1.xy_powers[2].sum()) == 1
+    entries = sum(int(fam[2].numel()) for fam in got_families.values())
+    assert counts[(None, "crs.staged_bytes", ())] == 96 * entries
+    assert counts.get((None, "crs.rows_fallback", ()), 0) == (1 if case == "rows" else 0)
+
+
+def test_crs_decode_source_constants():
+    """csrc/crs_decode.cu's R^2 words are R^2 mod q, and its entry is the
+    96-byte G1 entry the reader stages."""
+    import pathlib
+    import re
+
+    from tokamak_zk_evm_tpu_torch.backend import kernels as K
+
+    src = (pathlib.Path(K.__file__).parent / "csrc" / "crs_decode.cu").read_text()
+    body = src[src.index("r2w(int k)"):src.index("store_limbs")]
+    words = [int(w, 16) for w in re.findall(r"0x([0-9a-f]{8})u", body)]
+    assert sum(w << (32 * k) for k, w in enumerate(words)) == FQ.R2_mod
+    assert len(words) == 12 and K.G1_ENTRY_BYTES == RK.G1_BYTES == 96
+
+
+def test_malformed_sections_raise(tmp_path, world):
+    """Errors of the mapped reader are RkyvErrors: an empty file, a family
+    length off by one, a row pointing past the end, a file cut inside a
+    section."""
+    sigma, params = world["sigma"], world["params"]
+    path = str(tmp_path / "combined_sigma.rkyv")
+    RK.write_combined_sigma(sigma, params, path)
+    data = open(path, "rb").read()
+    size, _ = RK.struct_layout("SigmaRkyv", "align_desc").size_align
+    base = len(data) - size + RK.struct_layout("SigmaRkyv", "align_desc").offsets["sigma_1"][0]
+    lay = RK.struct_layout("Sigma1Rkyv", "align_desc").offsets
+    xy_field = base + lay["xy_powers"][0]
+    xy_pos, xy_n = RK._read_vec_header(memoryview(data), xy_field)
+    prv_pos, _ = RK._read_vec_header(memoryview(data), base + lay["delta_inv_li_o_prv"][0])
+
+    def patched(at, value):
+        out = bytearray(data)
+        out[at:at + 8] = value
+        return bytes(out)
+
+    cases = {
+        "empty": b"",
+        "xy_len": patched(xy_field, struct.pack("<iI", xy_pos - xy_field, xy_n + 1)),
+        "row_past_end": patched(prv_pos, struct.pack("<iI", len(data) - prv_pos, params.s_max)),
+        "cut": data[:xy_pos + 96 * 5] + data[-size:],
+    }
+    for name, blob in cases.items():
+        bad = str(tmp_path / f"{name}.rkyv")
+        open(bad, "wb").write(blob)
+        with pytest.raises(RK.RkyvError):
+            RK.read_combined_sigma(bad, params, device="cpu")
 
 
 def test_oracle_cross_validates_primary_writer(tmp_path, world):

@@ -70,6 +70,7 @@ SIGNATURES = {
         "tzk_msm_bucket_sum": [_I, _P, _P, _P, _P, _P, _LL, _P, _P],
         "tzk_msm_window_reduce": [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _P],
     },
+    "crs_decode": {"tzk_crs_decode": [_P, _P, _P, _P, _LL, _LL, _LL, _P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -38,6 +38,9 @@ doubling on `g1_lazy.cuh`'s):
                         G1_DBL           jacobian doubling
                         G1_TO_AFFINE     x Z^-2, y Z^-3 and inf, after K2
                                          inverts Z
+      csrc/crs_decode.cu CRS_DECODE      rkyv G1 entries (the file's bytes)
+                                         to Montgomery limb columns; no TPU
+                                         kernel (the host decoded them)
 
 The fixed-base op's 12-bit table is built by the op itself (at 8 bits) and
 `g1_to_affine`.
@@ -87,8 +90,10 @@ AFF_POST = Kernel("aff_post", "g1_affine.cu", f"{_PK}:1096")
 G1_ADD = Kernel("g1_add", "g1_ops.cu", f"{_PK}:824")
 G1_DBL = Kernel("g1_dbl", "g1_ops.cu", f"{_PK}:810")
 G1_TO_AFFINE = Kernel("g1_to_affine", "g1_ops.cu", f"{_PK}:867")
+CRS_DECODE = Kernel("crs_decode", "crs_decode.cu",
+                    "none: tokamak_zk_evm_tpu/io/rkyv_crs.py:190 decodes on the host")
 KERNELS = (FR_EW, FQ_EW, FIELD_INV, BATCH_INV, FR_SCAN, NTT, G1_FIXED_BASE, MSM_BUCKET_SUM,
-           MSM_WINDOW, AFF_PRE, AFF_POST, G1_ADD, G1_DBL, G1_TO_AFFINE)
+           MSM_WINDOW, AFF_PRE, AFF_POST, G1_ADD, G1_DBL, G1_TO_AFFINE, CRS_DECODE)
 
 
 def reset_counts() -> None:
@@ -1241,3 +1246,59 @@ def g1_msm_finish(handle):
 
 def g1_msm(scalars, px, py, pinf):
     return g1_msm_finish(g1_msm_start(scalars, px, py, pinf))
+
+
+# ---------------------------------------------------------------------------
+# The rkyv CRS decode (csrc/crs_decode.cu)
+# ---------------------------------------------------------------------------
+
+G1_ENTRY_BYTES = 96  # an rkyv G1 entry: x then y, 48 little-endian bytes each
+
+
+@functools.lru_cache(maxsize=None)
+def _r2_col(device) -> torch.Tensor:
+    """[24, 1] limbs of R^2 mod q (int64)."""
+    return torch.tensor(FQ.to_limbs(FQ.R2_mod), dtype=torch.int64, device=device)[:, None]
+
+
+def plain_crs_decode(raw, n: int):
+    """Plain version of the decode: the first n rkyv G1 entries of `raw`
+    (uint8) -> x, y [24, n] Montgomery int32 and inf [n] int32 (1 where all
+    96 bytes are zero)."""
+    b = raw[: G1_ENTRY_BYTES * n].reshape(n, 2 * FQ_L, 2).to(torch.int64)
+    lim = (b[:, :, 0] | (b[:, :, 1] << 8)).T  # [48, n]: x's 24 limbs, then y's
+    r2 = _r2_col(raw.device).expand(FQ_L, n)  # second: the file's words may reach 2^384
+    x = limbs.mul(_FQ, lim[:FQ_L].contiguous(), r2)
+    y = limbs.mul(_FQ, lim[FQ_L:].contiguous(), r2)
+    inf = (lim == 0).all(0)
+    return x.to(torch.int32), y.to(torch.int32), inf.to(torch.int32)
+
+
+def crs_decode(raw, n: int, ox, oy, oinf, off: int) -> None:
+    """Decode the first n rkyv G1 entries of `raw` (uint8, on the outputs'
+    device) into columns [off, off + n) of a family's x, y [24, B] and
+    inf [B] (int32), in Montgomery form: one launch on the card."""
+    _check(ox, FQ_L, "ox")
+    _check(oy, FQ_L, "oy")
+    B = ox.shape[1]
+    if oy.shape[1] != B or oinf.dtype != torch.int32 or tuple(oinf.shape) != (B,) \
+            or not oinf.is_contiguous():
+        raise ValueError(f"crs_decode: want x, y [24, B] and inf [B] int32, got "
+                         f"{tuple(oy.shape)} and {oinf.dtype} {tuple(oinf.shape)}")
+    if raw.dtype != torch.uint8 or raw.dim() != 1 or not raw.is_contiguous() \
+            or raw.numel() < G1_ENTRY_BYTES * n:
+        raise ValueError(f"crs_decode: want a contiguous uint8 buffer of {n} entries, got "
+                         f"{raw.dtype} {tuple(raw.shape)}")
+    if n < 0 or off < 0 or off + n > B:
+        raise ValueError(f"crs_decode: columns [{off}, {off + n}) outside a family of {B}")
+    if not on_card(raw, ox, oy, oinf):
+        x, y, inf = plain_crs_decode(raw, n)
+        ox[:, off:off + n] = x
+        oy[:, off:off + n] = y
+        oinf[off:off + n] = inf
+        return
+    if raw.data_ptr() % 16:
+        raise ValueError("crs_decode: the entries must start 16-byte aligned")
+    build.call("crs_decode", "tzk_crs_decode", _ptr(raw), _ptr(ox), _ptr(oy), _ptr(oinf), n,
+               off, B, _stream(raw))
+    CRS_DECODE.launches += 1

@@ -2,9 +2,12 @@
 `sigma_preprocess.rkyv` compatibility with the reference's published CRS.
 
 The port of the JAX package's `io/rkyv_crs.py`: the host parser and writer
-are copied; the device families are torch tensors, and their conversion to
-and from Montgomery form is one Fq product (`ops.field.fq_mul`, K1 on the
-card) by R^2 or by 1 over every column.
+are copied; the device families are torch tensors.  The reader maps the
+archive, parses its root, headers and spot checks from the map, and hands
+each G1 family section to `_FamilyLoader`, which copies the file's bytes to
+the device and decodes them there into Montgomery limb columns
+(`backend.kernels.crs_decode`).  The writer converts the families back with
+one Fq product by 1 (`ops.field.fq_mul`, K1 on the card) over every column.
 
 The reference serializes its CRS with rkyv 0.7 zero-copy archives
 (`packages/backend/libs/src/iotools/mod.rs:1700-1845`:
@@ -34,7 +37,9 @@ Sigma = 2552 B), so the root position is layout-independent.
 
 from __future__ import annotations
 
+import contextlib
 import io
+import mmap
 import os
 import struct
 from dataclasses import dataclass
@@ -42,8 +47,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..backend import kernels as K
 from ..fields import FQ, Q_MOD
 from ..ops import field as F
+from ..utils import timing
 from ..utils.device import resolve_device
 from .crs import host_u32
 
@@ -196,32 +203,86 @@ def _g2_on_curve(p) -> bool:
     return G2.is_on_curve_affine(p)
 
 
-def _g1_family_from_section(buf: memoryview, pos: int, n: int, device):
-    """n consecutive G1SerdeRkyv entries -> device affine family (Montgomery).
-
-    Vectorized: bytes -> [24, n] 16-bit limb columns -> `device` -> one Fq
-    product by R^2."""
-    if n < 0 or pos < 0 or pos + n * 96 > len(buf):
-        raise RkyvError(
-            f"G1 section [{pos}, {pos + n * 96}) out of bounds ({len(buf)})"
-        )
-    raw = np.frombuffer(buf, dtype=np.uint8, count=n * 96, offset=pos)
-    raw = raw.reshape(n, 96)
-
-    def cols(half):
-        limbs = half.copy().view("<u2").astype(np.int32).T  # [24, n]
-        return torch.from_numpy(np.ascontiguousarray(limbs)).to(device)
-
-    inf = ~np.any(raw, axis=1)
-    px = fq_cols_to_mont(cols(raw[:, :48]))
-    py = fq_cols_to_mont(cols(raw[:, 48:]))
-    return px, py, torch.from_numpy(inf.astype(np.int32)).to(device)
+STAGE_POINTS = 1 << 20  # G1 entries a staging buffer holds (96 MiB)
 
 
-def fq_cols_to_mont(a):
-    """[24, N] canonical limb columns -> Montgomery (a product by R^2)."""
-    r2 = np.array(FQ.to_limbs(FQ.R_mod * FQ.R_mod % Q_MOD), np.int32)
-    return F.fq_mul(a, F.tensor(r2.reshape(FQ.n_limbs, 1), a.device))
+def _read_into(fd: int, dst: memoryview, pos: int) -> None:
+    """Fill `dst` from the file at byte `pos`; a file that ends first raises."""
+    while dst.nbytes:
+        got = os.preadv(fd, [dst], pos)
+        if got <= 0:
+            raise RkyvError(f"file ends before byte {pos + dst.nbytes}")
+        dst, pos = dst[got:], pos + got
+
+
+class _FamilyLoader:
+    """G1 family sections of an open archive, decoded on `device`.
+
+    Each chunk of whole entries is read from the file into one of two host
+    staging buffers (pinned for a card), copied to the card without waiting
+    and decoded there by `kernels.crs_decode` into the family's columns,
+    while the host reads the next chunk into the other buffer; a buffer is
+    refilled once its last copy has ended.  So the file's bytes cross the bus
+    once, and the card holds the finished families and one chunk.  On the
+    CPU the plain decode reads the staging buffer itself."""
+
+    def __init__(self, fd: int, size: int, device: torch.device,
+                 chunk_points: int = STAGE_POINTS):
+        self.fd, self.size, self.device = fd, size, device
+        self.chunk = max(1, min(chunk_points, size // G1_BYTES))
+        self.card = device.type == "cuda"
+        self.host = [None, None]
+        self.copied = [None, None]  # the event after each buffer's last copy
+        self.turn = 0
+        self.raw = None  # the card's chunk of file bytes
+
+    def family(self, sections):
+        """(px, py, pinf) of the entries of the (pos, count) sections, in order."""
+        for pos, n in sections:
+            if n < 0 or pos < 0 or pos + n * G1_BYTES > self.size:
+                raise RkyvError(
+                    f"G1 section [{pos}, {pos + n * G1_BYTES}) out of bounds ({self.size})")
+        total = sum(n for _, n in sections)
+        out = (torch.empty((FQ.n_limbs, total), dtype=torch.int32, device=self.device),
+               torch.empty((FQ.n_limbs, total), dtype=torch.int32, device=self.device),
+               torch.empty(total, dtype=torch.int32, device=self.device))
+        off = 0
+        for pos, n in sections:
+            for k in range(0, n, self.chunk):
+                self._decode(pos + k * G1_BYTES, min(self.chunk, n - k), out, off + k)
+            off += n
+        return out
+
+    def _decode(self, pos: int, n: int, out, off: int) -> None:
+        nb = n * G1_BYTES
+        j, self.turn = self.turn, self.turn ^ 1
+        if self.host[j] is None:
+            self.host[j] = torch.empty(self.chunk * G1_BYTES, dtype=torch.uint8,
+                                       pin_memory=self.card)
+        elif self.copied[j] is not None:
+            with timing.sync("crs.staging"):
+                self.copied[j].synchronize()
+        host = self.host[j][:nb]
+        with timing.span("crs.read"):
+            _read_into(self.fd, memoryview(host.numpy()), pos)
+        timing.count("crs.staged_bytes", k=nb)
+        with timing.span("crs.decode"):
+            raw = host
+            if self.card:
+                if self.raw is None:
+                    self.raw = torch.empty(self.chunk * G1_BYTES, dtype=torch.uint8,
+                                           device=self.device)
+                raw = self.raw[:nb]
+                raw.copy_(host, non_blocking=True)
+                self.copied[j] = torch.cuda.Event()
+                self.copied[j].record(torch.cuda.current_stream(self.device))
+            K.crs_decode(raw, n, *out, off)
+
+    def finish(self) -> None:
+        """Wait for the last copies and decodes: the load's one wait at its end."""
+        if self.card:
+            with timing.sync("crs.upload"):
+                torch.cuda.current_stream(self.device).synchronize()
 
 
 def fq_cols_from_mont(a):
@@ -470,7 +531,7 @@ def _parse_g1_vec_points(buf, pos, n):
     return [_read_g1(buf, pos + 96 * i) for i in range(n)]
 
 
-def _parse_combined(buf: memoryview, params, mode: str, device):
+def _parse_combined(buf, params, mode: str, loader: _FamilyLoader):
     root_size, root_align = struct_layout("SigmaRkyv", mode).size_align
     if len(buf) < root_size:
         raise RkyvError("file smaller than archived SigmaRkyv")
@@ -516,8 +577,8 @@ def _parse_combined(buf: memoryview, params, mode: str, device):
         opos, on = _read_vec_header(buf, s1_base + s1lay[field][0])
         if on != rows:
             raise RkyvError(f"{field}: {on} rows != {rows}")
-        # fast path: rkyv writes inner vec contents contiguously; fall back
-        # to per-row assembly when they are not
+        # fast path: rkyv writes inner vec contents contiguously, one
+        # section; else the rows, each its own section
         secs = []
         for r in range(rows):
             cpos, cn = _read_vec_header(buf, opos + 8 * r)
@@ -525,15 +586,9 @@ def _parse_combined(buf: memoryview, params, mode: str, device):
                 raise RkyvError(f"{field}[{r}]: {cn} cols != {cols}")
             secs.append(cpos)
         if all(secs[r] == secs[0] + 96 * cols * r for r in range(rows)):
-            return _g1_family_from_section(buf, secs[0], rows * cols, device)
-        parts = [
-            _g1_family_from_section(buf, secs[r], cols, device) for r in range(rows)
-        ]
-        return (
-            torch.cat([p[0] for p in parts], 1),
-            torch.cat([p[1] for p in parts], 1),
-            torch.cat([p[2] for p in parts]),
-        )
+            return loader.family([(secs[0], rows * cols)])
+        timing.count("crs.rows_fallback")
+        return loader.family([(pos, cols) for pos in secs])
 
     def read_vec_of_g1_lists(field):
         opos, on = _read_vec_header(buf, s1_base + s1lay[field][0])
@@ -568,10 +623,10 @@ def _parse_combined(buf: memoryview, params, mode: str, device):
     from ..models.setup import Sigma, Sigma1, Sigma2
 
     sigma1 = Sigma1(
-        xy_powers=_g1_family_from_section(buf, xy_pos, xy_n, device),
+        xy_powers=loader.family([(xy_pos, xy_n)]),
         h_max=h_max,
         rs_y=rs_y,
-        gamma_inv_o_inst=_g1_family_from_section(buf, gi_pos, gi_n, device),
+        gamma_inv_o_inst=loader.family([(gi_pos, gi_n)]),
         eta_inv_li_o_inter_alpha4_kj=inter,
         delta_inv_li_o_prv=prv,
         x=x, y=y, delta=delta, eta=eta,
@@ -585,30 +640,43 @@ def _parse_combined(buf: memoryview, params, mode: str, device):
     )
 
 
+def _load(path: str, parse, params, mode: str, device: torch.device,
+          chunk_points: int = STAGE_POINTS):
+    """Map the archive at `path` and `parse` it under each layout candidate
+    (mode 'auto') or `mode`, the families through one `_FamilyLoader`;
+    the first that validates is returned once its device work is done."""
+    modes = LAYOUT_MODES if mode == "auto" else (mode,)
+    errors = []
+    with open(path, "rb") as f:
+        size = os.fstat(f.fileno()).st_size
+        mapped = (mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) if size
+                  else contextlib.nullcontext(b""))  # an empty file cannot be mapped
+        with mapped as buf:
+            loader = _FamilyLoader(f.fileno(), size, device, chunk_points)
+            for m in modes:
+                try:
+                    out = parse(buf, params, m, loader)
+                except (ValueError, IndexError, struct.error) as e:
+                    # ValueError covers RkyvError; IndexError covers malformed
+                    # empty sections — auto mode must degrade to the next
+                    # layout candidate, never crash
+                    errors.append(f"{m}: {e}")
+                    continue
+                loader.finish()
+                return out
+    raise RkyvError("no layout mode matched: " + "; ".join(errors))
+
+
 def read_combined_sigma(path: str, params, mode: str = "auto", device=None):
     """Parse combined_sigma.rkyv -> Sigma (families on `device`, default
     cuda, Montgomery).
 
     mode='auto' tries each field-layout candidate and accepts the first
     whose points validate on-curve."""
-    device = resolve_device(device)
-    with open(path, "rb") as f:
-        data = f.read()
-    buf = memoryview(data)
-    modes = LAYOUT_MODES if mode == "auto" else (mode,)
-    errors = []
-    for m in modes:
-        try:
-            return _parse_combined(buf, params, m, device)
-        except (ValueError, IndexError, struct.error) as e:
-            # ValueError covers RkyvError and np.frombuffer size errors;
-            # IndexError covers malformed empty sections — auto mode must
-            # degrade to the next layout candidate, never crash
-            errors.append(f"{m}: {e}")
-    raise RkyvError("no layout mode matched: " + "; ".join(errors))
+    return _load(path, _parse_combined, params, mode, resolve_device(device))
 
 
-def _parse_preprocess(buf: memoryview, params, mode: str, device):
+def _parse_preprocess(buf, params, mode: str, loader: _FamilyLoader):
     root_size, _ = struct_layout("SigmaPreprocessRkyv", mode).size_align
     if len(buf) < root_size:
         raise RkyvError("file smaller than archived SigmaPreprocessRkyv")
@@ -629,8 +697,8 @@ def _parse_preprocess(buf: memoryview, params, mode: str, device):
         if not _g1_on_curve(_read_g1(buf, xy_pos + 96 * int(i))):
             raise RkyvError(f"xy_powers[{i}] fails curve equation")
     return (
-        _g1_family_from_section(buf, xy_pos, xy_n, device),
-        _g1_family_from_section(buf, gi_pos, gi_n, device),
+        loader.family([(xy_pos, xy_n)]),
+        loader.family([(gi_pos, gi_n)]),
         h_max,
         rs_y,
     )
@@ -639,18 +707,4 @@ def _parse_preprocess(buf: memoryview, params, mode: str, device):
 def read_sigma_preprocess(path: str, params, mode: str = "auto", device=None):
     """Parse sigma_preprocess.rkyv -> (xy_powers, gamma_inv_o_inst, h_max,
     rs_y), the families on `device` (default cuda)."""
-    device = resolve_device(device)
-    with open(path, "rb") as f:
-        data = f.read()
-    buf = memoryview(data)
-    modes = LAYOUT_MODES if mode == "auto" else (mode,)
-    errors = []
-    for m in modes:
-        try:
-            return _parse_preprocess(buf, params, m, device)
-        except (ValueError, IndexError, struct.error) as e:
-            # ValueError covers RkyvError and np.frombuffer size errors;
-            # IndexError covers malformed empty sections — auto mode must
-            # degrade to the next layout candidate, never crash
-            errors.append(f"{m}: {e}")
-    raise RkyvError("no layout mode matched: " + "; ".join(errors))
+    return _load(path, _parse_preprocess, params, mode, resolve_device(device))
