@@ -1,14 +1,16 @@
 """What every entry adapter offers the harness, and the in-process defaults.
 
-An adapter drives one of the program's entry points with the generator's
-plain data.  `run.py` calls, in this order: `setup()` (what the entry holds
-across jobs), `prepare(job, key)` for the warm-up job and for every job of
-the window (whatever `run_job` needs, made in set-up), `run_job(item)`,
-then `begin_window(rec)`, `run_job` job after job, `end_window()` (the
-device peak), with a trace `trace_record(w0_ns, w1_ns, window_s)`, then
-`forbidden()` and `close()`.  The defaults serve an entry that proves in
-this process; one that proves in other processes overrides the window's
-four methods.
+An adapter drives one of the program's entry points with the plain data of
+the cell's kind of job (`tasks/<task>.py`).  `run.py` calls, in this order:
+`setup()` (what the entry holds across jobs: counted in `setup_s`),
+`prepare(job, key)` for the warm-up job and for every job of the window
+(whatever `run_job` needs, made before the window and timed apart from
+`setup_s`), `run_job(item)` twice on the warm-up job (in `setup_s`), then
+`begin_window(rec)`, `run_job` job after job, `end_window()` (the device
+peak), with a trace `trace_record(w0_ns, w1_ns, window_s)`, then
+`forbidden()` and `close()`.  The defaults serve an entry that runs its jobs
+in this process; one that runs them in other processes overrides the
+window's four methods.
 """
 
 from __future__ import annotations
@@ -17,8 +19,8 @@ import torch
 
 
 class Entry:
-    mixers = True  # the jobs carry the generator's mixers
-    zero_blinding = False  # the control: the program's own zero-blinding path
+    mixers = True  # a proof's jobs carry the generator's mixers
+    zero_blinding = False  # a proof's control: the program's own zero-blinding path
 
     def __init__(self, ctx):
         self.ctx = ctx
@@ -32,7 +34,8 @@ class Entry:
         return job
 
     def run_job(self, item) -> dict:
-        """dict(proof=<the proof as `reference.layout` names it>, timing={...})"""
+        """dict(proof=<the job's answer, as the task's judge reads it: a proof
+        as `reference.layout` names it>, timing={...})"""
         raise NotImplementedError
 
     def sync(self):

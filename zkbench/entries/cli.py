@@ -3,7 +3,7 @@
 Set-up makes the CRS on the device from the seed's tau, writes it as
 `combined_sigma.rkyv` with the program's rkyv writer, and stages the library
 in the qap-compiler layout with the benchmark's own writer; every job's
-synthesizer files are written in set-up too.  A job runs
+synthesizer files are written before the window (`prepare`).  A job runs
 `python -m zkbench.entries.cli_child` (a thin wrapper around
 `tokamak_zk_evm_tpu_torch.cli.main`) with `prove --library --crs
 --synthesizer --output` and reads back `proof.json`.  The CLI draws its

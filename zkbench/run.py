@@ -3,20 +3,22 @@
     python3 -m zkbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 From the root of a checkout.  The cell names a configuration
-(`configs/<name>.json`: its library sizes and its entry adapter,
-`entries/<entry>.py`) and a traffic mix (`traffic/<name>.json`).  Set-up
-draws the library and tau from the seed, builds what the entry needs, proves
-one warm-up job of the mix's largest size twice (the first proof builds the
-kernels in a fresh checkout, the second sets the pace), and makes from the
-seed as many jobs as the window can use at that pace, with a margin.  The window then proves them back
-to back (one in flight) and closes at the first completion after
-`--seconds`.
-After it, the plain reference (`reference/check.py`) judges a sample of the
-window's proofs, drawn from the seed.  `--trace 0` prints the cell's
-end-to-end metrics; `--trace 1` runs the same window with spans, op
-counters and the device profiler on, and prints the per-layer metrics
-(`metrics/<name>.py`) with the device's busy seconds and a breakdown.
-Everything but the last line of standard output goes to standard error.
+(`configs/<name>.json`: its kind of job, `tasks/<task>.py`, `proof` where
+it names none; its entry adapter, `entries/<entry>.py`; its sizes) and a
+traffic mix (`traffic/<name>.json`, read by the task).  The task draws from
+the seed what the entry and the jobs share; set-up (`setup_s`) is the
+entry's own (`entry.setup()`) and one warm-up job of the mix's largest size
+run twice (the first run builds the kernels in a fresh checkout, the
+second sets the pace).  Apart from it, and logged, the task makes from the
+seed as many jobs as the window can use at that pace, with a margin, each
+prepared by the entry.  The window then runs them back to back (one in
+flight) and closes at the first completion after `--seconds`.  After it,
+the task's judge holds the window's answers to its plain reference.
+`--trace 0` prints the cell's end-to-end metrics; `--trace 1` runs the same
+window with spans, op counters and the device profiler on, and prints the
+per-layer metrics (`metrics/<name>.py`) with the device's busy seconds and
+a breakdown.  Everything but the last line of standard output goes to
+standard error.
 """
 
 from __future__ import annotations
@@ -33,9 +35,7 @@ import time
 
 import torch
 
-from . import gen
 from .isolation import forbidden_modules
-from .reference.check import Reference
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # knobs of the program that change what it runs; a run fixes them
@@ -53,32 +53,37 @@ def load_json(path: str):
 
 
 class Ctx:
-    """What an entry adapter gets: the cell's data and where to work."""
+    """What a task and an entry adapter get: the cell's data and where to
+    work.  The task's `shared(ctx)` adds what its jobs and the entry share;
+    `mixers` is the entry's (whether it blinds with the jobs' mixers)."""
 
     def __init__(self, root, config, traffic, seed, device, workdir):
-        self.root, self.traffic = root, traffic
+        self.root, self.config, self.traffic = root, config, traffic
         self.seed, self.device, self.workdir = seed, device, workdir
-        self.lib = gen.make_library(**config["library"])
-        self.tau = gen.make_tau(gen.rng_for(seed, 0))
+        self.mixers = False
+
+
+def task_of(config: dict):
+    """The configuration's kind of job: `tasks/<task>.py`, `proof` by default."""
+    return importlib.import_module(f"zkbench.tasks.{config.get('task', 'proof')}")
 
 
 class JobPool:
-    """The jobs, drawn from the seed and each prepared by the entry in
-    set-up; one the window asks for beyond them is made then (logged)."""
+    """The task's jobs, drawn from the seed and each prepared by the entry
+    before the window; one the window asks for beyond them is made then
+    (logged)."""
 
     MARGIN = 1.5  # jobs made: this many times what the warm-up's pace fills
 
-    def __init__(self, ctx, with_mixers: bool):
-        self.ctx, self.with_mixers = ctx, with_mixers
-        self.heavy = tuple(ctx.traffic["heavy_share"])
+    def __init__(self, ctx, task):
+        self.ctx, self.task = ctx, task
         self.jobs: list = []
         self.items: list = []
         self.prepare = None
 
     def _add(self):
         i = len(self.jobs)
-        job = gen.job(self.ctx.lib, gen.placement_count(self.ctx.traffic, i), self.ctx.seed,
-                      i, self.with_mixers, self.heavy)
+        job = self.task.make_job(self.ctx, i)
         self.jobs.append(job)
         self.items.append(self.prepare(job, i))
 
@@ -96,45 +101,48 @@ class JobPool:
             self._add()
         return self.items[k]
 
-    def warmup(self):
-        """A job of the mix's largest size, from a stream of its own."""
-        rng = gen.rng_for(self.ctx.seed, 3)
-        job = gen.make_job(self.ctx.lib, self.ctx.traffic["placements"][1], rng, index=-1,
-                           heavy=self.heavy)
-        if self.with_mixers:
-            job.mixer = gen.make_mixer(rng)
-        return job
-
 
 def run_cell(cell: dict, config: dict, traffic: dict, seed: int, seconds: float,
              trace: bool, device: str, root: str = ROOT, control: dict | None = None) -> dict:
     """Set-up, the window, the judgement; the result's fields."""
     from .trace import Recorder
 
+    task = task_of(config)
     entry_mod = importlib.import_module(f"zkbench.entries.{config['entry']}")
     workdir = tempfile.mkdtemp(prefix="zkbench-", dir=os.environ.get("TMPDIR"))
     try:
-        t0 = time.perf_counter()
+        t_data = time.perf_counter()
         ctx = Ctx(root, config, traffic, seed, device, workdir)
         entry = entry_mod.Entry(ctx)
-        pool = JobPool(ctx, entry.mixers)
+        ctx.mixers = entry.mixers
+        task.shared(ctx)
+        pool = JobPool(ctx, task)
         if control:
             control_setup(entry, control)
+        log(f"[zkbench] shared data drawn: {time.perf_counter() - t_data:.3f} s")
+        # set-up is the entry's own and the two warm-up runs; the harness's
+        # job making (jobs_s) is timed apart, since its count follows the pace
+        t0 = time.perf_counter()
         entry.setup()
-        warm_item = entry.prepare(pool.warmup(), "warmup")
-        for _ in range(2):  # the first proof builds and warms up; the second sets the pace
+        setup_s = time.perf_counter() - t0
+        t_jobs = time.perf_counter()
+        warm_item = entry.prepare(task.warmup_job(ctx), "warmup")
+        jobs_s = time.perf_counter() - t_jobs
+        for _ in range(2):  # the first run builds and warms up; the second sets the pace
             t_warm = time.perf_counter()
             warm = entry.run_job(warm_item)
             warm_s = time.perf_counter() - t_warm
+            setup_s += warm_s
             if warm.get("error") or warm["proof"] is None:
                 raise RuntimeError(f"the warm-up job failed: {warm.get('error')}")
+        t_jobs = time.perf_counter()
         pool.fill(entry.prepare, pool.enough(warm_s, seconds))
         if device != "cpu":
             torch.cuda.synchronize()
+        jobs_s += time.perf_counter() - t_jobs
         setup_peak = torch.cuda.max_memory_allocated() if device != "cpu" else 0
-        setup_s = time.perf_counter() - t0
-        log(f"[zkbench] set-up {setup_s:.3f} s, warm-up {warm_s:.3f} s, "
-            f"{len(pool.jobs)} jobs made")
+        log(f"[zkbench] set-up {setup_s:.3f} s, warm-up {warm_s:.3f} s")
+        log(f"[zkbench] jobs made: {len(pool.jobs)} and the warm-up's in {jobs_s:.3f} s")
 
         rec = Recorder(device) if trace else None
         if rec is not None:
@@ -151,7 +159,7 @@ def run_cell(cell: dict, config: dict, traffic: dict, seed: int, seconds: float,
                 res = dict(proof=None, error=f"{type(e).__name__}: {e}", timing={})
             res["k"], res["s"] = k, time.perf_counter() - t_job
             (failed if res.get("error") or res["proof"] is None else done).append(res)
-            log(f"[zkbench] job {k}: {pool.jobs[k].n_placements} placements, {res['s']:.3f} s")
+            log(f"[zkbench] job {k}: {res['s']:.3f} s")
             if res.get("error"):
                 log(f"[zkbench] job {k} failed: {res['error'][-600:]}")
             k += 1
@@ -171,25 +179,28 @@ def run_cell(cell: dict, config: dict, traffic: dict, seed: int, seconds: float,
         loaded = entry.forbidden()
         entry.close()
         del entry
-        log(f"[zkbench] window {window_s:.3f} s, {len(done)} proofs, {len(failed)} failed")
+        log(f"[zkbench] window {window_s:.3f} s, {len(done)} done, {len(failed)} failed")
 
         t_ref = time.perf_counter()
-        checks = judge(ctx, pool, done, failed, seed)
+        checks = task.judge(ctx, pool.jobs, done, failed, seed)
         log(f"[zkbench] reference {time.perf_counter() - t_ref:.3f} s")
-        return dict(setup_s=setup_s, window_s=window_s, done=done, failed=failed,
-                    peak=peak, setup_peak=setup_peak, checks=checks, trace=trace_rec,
-                    attempted=k, forbidden=loaded)
+        return dict(setup_s=setup_s, jobs_s=jobs_s, window_s=window_s, done=done,
+                    failed=failed, peak=peak, setup_peak=setup_peak, checks=checks,
+                    trace=trace_rec, attempted=k, forbidden=loaded, task=task)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
 def control_setup(entry, control: dict):
-    """The control and the planted faults (`control.py`), switched on in the
-    program's own paths: zero blinding (the service's `Mixer.zero()`, the
-    CLI's `--deterministic`), or an answer altered where it is made."""
-    if control.get("zero_blinding"):
-        entry.zero_blinding = True
-    if control.get("alter"):
+    """A control or a planted fault of the cell's task (its `CONTROLS`),
+    switched on in the program's own paths: `alter` changes each answer
+    where the entry hands it over; every other key is an entry attribute
+    set (the proof's `zero_blinding`: the service's `Mixer.zero()`, the
+    CLI's `--deterministic`)."""
+    for key, value in control.items():
+        if key != "alter":
+            setattr(entry, key, value)
+    if "alter" in control:
         run_job = entry.run_job
 
         def altered(item):
@@ -200,51 +211,18 @@ def control_setup(entry, control: dict):
         entry.run_job = altered
 
 
-def judge(ctx, pool, done: list, failed: list, seed: int) -> dict:
-    """Hold a sample of the window's proofs to the plain reference."""
-    sample_n = ctx.traffic["judge"]
-    order = list(range(len(done)))
-    if len(order) > sample_n:
-        rng = gen.rng_for(seed, 4)
-        longest = max(order, key=lambda i: pool.jobs[done[i]["k"]].n_placements)
-        rest = [i for i in order if i != longest]
-        pick = rng.choice(len(rest), size=sample_n - 1, replace=False)
-        order = sorted([longest] + [rest[int(i)] for i in pick])
-    ref = Reference(ctx.lib, ctx.tau)
-    flags = dict(relation_fail=0, unblinded=0, mismatch=0, layout_fail=0)
-    for i in order:
-        res = done[i]
-        job = pool.jobs[res["k"]]
-        if res.get("layout_error"):
-            flags["layout_fail"] += 1
-            continue
-        k2 = gen.rand_fr(gen.rng_for(seed, 5, res["k"]))
-        mixer = job.mixer if pool.with_mixers else None
-        verdict = ref.judge(job, res["proof"], mixer, k2)
-        for key in ("relation_fail", "unblinded", "mismatch"):
-            flags[key] += verdict[key]
-        if verdict["detail"] or verdict["relation_fail"]:
-            log(f"[zkbench] job {res['k']}: {verdict}")
-    layout_fails = sum(1 for r in failed if r.get("layout_error"))
-    flags["layout_fail"] += layout_fails
-    flags["missing"] = len(failed) - layout_fails
-    flags["judged"] = len(order)
-    return flags
-
-
-# every number compared, with its limit: a count of proofs, exact
-LIMITS = dict(relation_fail=0, unblinded=0, mismatch=0, layout_fail=0, missing=0)
-
-
-def verdict(checks: dict) -> tuple[bool, dict]:
-    shown = {k: {"value": checks[k], "limit": lim} for k, lim in LIMITS.items()}
-    shown["judged"] = {"value": checks["judged"], "at_least": 1}
-    ok = all(checks[k] <= lim for k, lim in LIMITS.items()) and checks["judged"] >= 1
+def verdict(checks: dict, limits: dict) -> tuple[bool, dict]:
+    """`limits`: the task's `LIMITS`, each count's `limit` (at most) or
+    `at_least`; the counts shown beside them, in that order."""
+    shown = {k: {"value": checks[k], **lim} for k, lim in limits.items()}
+    ok = all(checks[k] <= lim["limit"] if "limit" in lim else checks[k] >= lim["at_least"]
+             for k, lim in limits.items())
     return ok, shown
 
 
 def result_line(bench: dict, cell: dict, out: dict, trace: bool, device: str) -> dict:
-    ok, shown = verdict(out["checks"])
+    task = out["task"]
+    ok, shown = verdict(out["checks"], task.LIMITS)
     kind = torch.cuda.get_device_name(0) if device != "cpu" else "cpu"
     dev = dict(platform="gpu" if device != "cpu" else "cpu", kind=kind, count=cell["chips"],
                memory_peak_bytes=int(max(out["peak"], out["setup_peak"])))
@@ -258,11 +236,9 @@ def result_line(bench: dict, cell: dict, out: dict, trace: bool, device: str) ->
 
     if not trace:
         n = len(out["done"])
-        values = dict(
-            proof_s=out["window_s"] / n if n else None,
-            peak_device_gib=out["peak"] / 2**30 if out["peak"] else None,
-            setup_s=out["setup_s"],
-        )
+        values = {task.SECONDS_PER_JOB: out["window_s"] / n if n else None,
+                  "peak_device_gib": out["peak"] / 2**30 if out["peak"] else None,
+                  "setup_s": out["setup_s"]}
         for m in bench["end_to_end"]:
             if applies(m) and values.get(m["name"]) is not None:
                 metrics[m["name"]] = dict(value=values[m["name"]], unit=m["unit"])

@@ -13,6 +13,7 @@ import pytest
 
 from zkbench import roofline, run, trace
 from zkbench import metrics as metrics_pkg
+from zkbench.tasks import proof
 
 BENCH = json.load(open(os.path.join(run.ROOT, "BENCHMARK.json")))
 # the published layout at its smallest: four public buffers and one chain kind
@@ -123,14 +124,14 @@ def test_result_line_and_verdict():
     cell = {c["name"]: c for c in BENCH["workloads"]}["s256-service.full-tx"]
     checks = dict(relation_fail=0, unblinded=0, mismatch=0, layout_fail=0, missing=0, judged=3)
     out = dict(done=[{}] * 4, failed=[], window_s=10.0, peak=2**30, setup_peak=2**31,
-               setup_s=20.0, attempted=4, checks=checks)
+               setup_s=20.0, attempted=4, checks=checks, task=proof)
     res = run.result_line(BENCH, cell, out, False, "cpu")
     assert res["correct"] and list(res)[-1] == "checks"
     assert res["metrics"]["proof_s"] == {"value": 2.5, "unit": "s"}
     assert res["metrics"]["peak_device_gib"]["value"] == 1.0
     assert res["device"]["memory_peak_bytes"] == 2**31
     for bad in (dict(checks, unblinded=1), dict(checks, judged=0), dict(checks, missing=1)):
-        assert not run.verdict(bad)[0]
+        assert not run.verdict(bad, proof.LIMITS)[0]
 
 
 def test_isolation_compares_whole_top_level_names():
@@ -144,7 +145,7 @@ def test_isolation_compares_whole_top_level_names():
 def test_harness_loads_no_jax():
     code = ("import sys; import zkbench.run, zkbench.control, zkbench.entries.service, "
             "zkbench.entries.cli, zkbench.entries.cli_child, zkbench.entries.base, "
-            "zkbench.isolation, zkbench.trace; "
+            "zkbench.isolation, zkbench.trace, zkbench.tasks.proof; "
             "from zkbench import run; bad = run.forbidden_modules(); print(bad); "
             "sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=run.ROOT, capture_output=True, text=True)
@@ -215,7 +216,7 @@ def test_service_traced_on_the_cpu():
     ("s256-cli.full-tx", "altered", "relation_fail"),
 ])
 def test_broken_timed_path_is_not_correct(workload, mode, flag):
-    from zkbench.control import MODES
+    from zkbench.tasks.proof import CONTROLS as MODES
 
     out, res = _run(workload, False, control=MODES[mode])
     assert not res["correct"]
