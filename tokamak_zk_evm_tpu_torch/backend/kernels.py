@@ -669,11 +669,13 @@ def _check_pt(p, name: str) -> None:
 def g1_add(p, q, rep=1):
     """Complete jacobian add of [24, B] point triples, q broadcast as K1
     broadcasts b (lane i reads q at i when q is as wide as p, else at
-    (i / rep) % Bq): one launch of the B13 add kernel."""
+    (i / rep) % Bq): one launch of the B13 add kernel.  The tracer counts
+    its lanes (`g1.add_lanes`) on either route."""
     _check_pt(p, "p")
     _check_pt(q, "q")
     if rep < 1:
         raise ValueError("rep must be >= 1")
+    timing.count("g1.add_lanes", int(p[0].shape[1]))
     if not on_card(*p, *q):
         return plain_g1_add(p, q, rep)
     out = tuple(torch.empty_like(c) for c in p)
@@ -685,8 +687,9 @@ def g1_add(p, q, rep=1):
 
 def g1_dbl(p):
     """Jacobian doubling of [24, B] point triples (infinity gives (1, 1, 0)):
-    one launch of the B13 doubling kernel."""
+    one launch of the B13 doubling kernel (lanes counted, `g1.dbl_lanes`)."""
     _check_pt(p, "p")
+    timing.count("g1.dbl_lanes", int(p[0].shape[1]))
     if not on_card(*p):
         return plain_g1_dbl(p)
     out = tuple(torch.empty_like(c) for c in p)
@@ -701,15 +704,17 @@ def g1_to_affine(p):
     launch of the B13 affine kernel (infinity gives x = y = 0, inf = 1)."""
     _check_pt(p, "p")
     if not on_card(*p):
+        timing.count("g1.affine_lanes", int(p[0].shape[1]))
         return plain_g1_to_affine(p)
     return g1_affine_scale(p, fq_batch_inv(p[2]))
 
 
 def g1_affine_scale(p, zi):
     """(X zi^2, Y zi^3, Z == 0) for jacobian p and zi = Z^-1 (0 where Z = 0):
-    the B13 affine kernel, one launch."""
+    the B13 affine kernel, one launch (lanes counted, `g1.affine_lanes`)."""
     _check_pt(p, "p")
     _check(zi, FQ_L, "zi")
+    timing.count("g1.affine_lanes", int(p[0].shape[1]))
     if not on_card(*p, zi):
         return plain_g1_affine_scale(p, zi)
     X, Y, Z = p

@@ -27,6 +27,20 @@ multiplies one host point at a time:
 Only the Schnorr proofs' single points, the phase-1 G2 points, the pairings
 and the point additions of the vanishing families stay on the host, as in
 the JAX package.
+
+Phase 2 is traced (`utils/timing`; nothing is recorded while the tracer is
+off): the roots `p2.contribute` and `p2.verify` (category "ceremony"), under
+them `p2.hash` (`_sigma_hash`, each family's pull in `sync.p2.hash_pull`),
+`p2.schnorr` (the three proofs made or checked), `p2.rescale` (the
+contribution's multiplications and to-affine, closed by the wait in
+`sync.p2.rescale`), `p2.g2` (the contribution's G2 multiplications),
+`p2.equal` (the fields a contribution must not touch; the device compare in
+`sync.p2.equal`), `p2.rlc` (a random linear combination's weights and MSMs)
+and `p2.pairing` (every `multi_pairing` of a Schnorr check or of the
+verification; phase 1's Schnorr checks record it too).  Counters:
+`p2.hash_bytes` (family bytes pulled and hashed), `p2.rescaled_points`,
+`p2.rlc_points` (points summed by the combinations' MSMs, both sides) and
+`p2.pairings`.
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ from ..host import curve as C
 from ..host.pairing import multi_pairing
 from ..ops import curve as cv
 from ..ops import msm as msm_mod
+from ..utils import timing
 from ..utils.device import resolve_device
 from .protocol import SetupParams, SubcircuitInfo, SubcircuitR1CS
 from .setup import Sigma, Sigma1, Sigma2, gen_evaled_lagrange_bases
@@ -451,6 +466,13 @@ def schnorr_prove(x: int, tag: bytes, transcript_hash: bytes, rng) -> SchnorrPro
     return SchnorrProof(X_g1, X_g2, R, (k + c * x) % R_MOD)
 
 
+def _pairing_is_one(g1_points, g2_points) -> bool:
+    """`multi_pairing(...).is_one()`, spanned `p2.pairing` and counted."""
+    timing.count("p2.pairings")
+    with timing.span("p2.pairing"):
+        return multi_pairing(g1_points, g2_points).is_one()
+
+
 def schnorr_verify(proof: SchnorrProof, tag: bytes, transcript_hash: bytes) -> bool:
     c = _schnorr_challenge(tag, transcript_hash, proof.X_g1, proof.X_g2, proof.R)
     # s*G1 == R + c*X_g1
@@ -461,7 +483,7 @@ def schnorr_verify(proof: SchnorrProof, tag: bytes, transcript_hash: bytes) -> b
         return False
     # X_g1 and X_g2 carry the same exponent: e(X_g1, G2) == e(G1, X_g2)
     neg = G1.to_affine(G1.neg(G1.from_affine(proof.X_g1)))
-    return multi_pairing([neg, G1.gen], [G2.gen, proof.X_g2]).is_one()
+    return _pairing_is_one([neg, G1.gen], [G2.gen, proof.X_g2])
 
 
 # ---------------------------------------------------------------------------
@@ -956,15 +978,19 @@ def _sigma_hash(sigma: Sigma) -> bytes:
     bytes of its limb-major uint32 array (the bit pattern of the port's
     int32 tensors), then the host points' strings."""
     h = hashlib.blake2b(digest_size=64)
-    for name in _FAMILIES:
-        for c in getattr(sigma.sigma_1, name):
-            h.update(np.ascontiguousarray(c.detach().cpu().numpy()).tobytes())
-    for p in (sigma.sigma_1.x, sigma.sigma_1.y, sigma.sigma_1.delta,
-              sigma.sigma_1.eta, sigma.lagrange_KL):
-        h.update(_ser_g1(p).encode())
-    for k in ("alpha", "alpha2", "alpha3", "alpha4", "gamma", "delta",
-              "eta", "x", "y"):
-        h.update(_ser_g2(getattr(sigma.sigma_2, k)).encode())
+    with timing.span("p2.hash"):
+        for name in _FAMILIES:
+            for c in getattr(sigma.sigma_1, name):
+                with timing.sync("p2.hash_pull"):
+                    raw = np.ascontiguousarray(c.detach().cpu().numpy())
+                timing.count("p2.hash_bytes", raw.nbytes)
+                h.update(raw.tobytes())
+        for p in (sigma.sigma_1.x, sigma.sigma_1.y, sigma.sigma_1.delta,
+                  sigma.sigma_1.eta, sigma.lagrange_KL):
+            h.update(_ser_g1(p).encode())
+        for k in ("alpha", "alpha2", "alpha3", "alpha4", "gamma", "delta",
+                  "eta", "x", "y"):
+            h.update(_ser_g2(getattr(sigma.sigma_2, k)).encode())
     return h.digest()
 
 
@@ -972,6 +998,11 @@ def phase2_contribute(sigma: Sigma, rng) -> tuple[Sigma, Phase2Proof]:
     """One gamma/delta/eta contribution
     (`flows/phase2_next_contributor.rs:253-320`), on the device of the
     Sigma's families."""
+    with timing.span("p2.contribute", "ceremony"):
+        return _contribute(sigma, rng)
+
+
+def _contribute(sigma: Sigma, rng) -> tuple[Sigma, Phase2Proof]:
     gamma_u = _rand_fr(rng)
     delta_u = _rand_fr(rng)
     eta_u = _rand_fr(rng)
@@ -979,24 +1010,31 @@ def phase2_contribute(sigma: Sigma, rng) -> tuple[Sigma, Phase2Proof]:
     delta_inv = pow(delta_u, -1, R_MOD)
     eta_inv = pow(eta_u, -1, R_MOD)
     th = _sigma_hash(sigma)
-    proof = Phase2Proof(
-        contributor_index=0,
-        proof_gamma=schnorr_prove(gamma_u, b"tzk/p2/gamma", th, rng),
-        proof_delta=schnorr_prove(delta_u, b"tzk/p2/delta", th, rng),
-        proof_eta=schnorr_prove(eta_u, b"tzk/p2/eta", th, rng),
-    )
+    with timing.span("p2.schnorr"):
+        proof = Phase2Proof(
+            contributor_index=0,
+            proof_gamma=schnorr_prove(gamma_u, b"tzk/p2/gamma", th, rng),
+            proof_delta=schnorr_prove(delta_u, b"tzk/p2/delta", th, rng),
+            proof_eta=schnorr_prove(eta_u, b"tzk/p2/eta", th, rng),
+        )
     s1, s2 = sigma.sigma_1, sigma.sigma_2
     device = s1.gamma_inv_o_inst[0].device
     # every family and host point times its scalar, in one round
     rows = s1.delta_inv_alphak_xh_tx + [s1.delta_inv_alpha4_xj_tx] + s1.delta_inv_alphak_yi_ty
     pts = [p for row in rows for p in row] + [s1.delta, s1.eta]
-    gi, inter, prv, small = (K.g1_to_affine(P) for P in _mul_jobs([
-        (_jac(s1.gamma_inv_o_inst), [gamma_inv], None, None),
-        (_jac(s1.eta_inv_li_o_inter_alpha4_kj), [eta_inv], None, None),
-        (_jac(s1.delta_inv_li_o_prv), [delta_inv], None, None),
-        (_jac(cv.pack_affine(pts, device)), [delta_inv] * (len(pts) - 2) + [delta_u, eta_u],
-         None, None)]))
-    small = cv.unpack_affine(small)
+    with timing.span("p2.rescale"):
+        jobs = [(_jac(s1.gamma_inv_o_inst), [gamma_inv], None, None),
+                (_jac(s1.eta_inv_li_o_inter_alpha4_kj), [eta_inv], None, None),
+                (_jac(s1.delta_inv_li_o_prv), [delta_inv], None, None),
+                (_jac(cv.pack_affine(pts, device)),
+                 [delta_inv] * (len(pts) - 2) + [delta_u, eta_u], None, None)]
+        timing.count("p2.rescaled_points", sum(int(P[0].shape[1]) for P, _, _, _ in jobs))
+        muls = _mul_jobs(jobs)
+        del jobs  # the jacobian copies go as soon as the products are made
+        gi, inter, prv, small = (K.g1_to_affine(P) for P in muls)
+        del muls
+        with timing.sync("p2.rescale"):
+            small = cv.unpack_affine(small)
     lists, at = [], 0
     for row in rows:
         lists.append(small[at: at + len(row)])
@@ -1017,13 +1055,11 @@ def phase2_contribute(sigma: Sigma, rng) -> tuple[Sigma, Phase2Proof]:
         delta_inv_alpha4_xj_tx=lists[nx],
         delta_inv_alphak_yi_ty=lists[nx + 1:],
     )
-    new_s2 = Sigma2(
-        alpha=s2.alpha, alpha2=s2.alpha2, alpha3=s2.alpha3, alpha4=s2.alpha4,
-        gamma=_g2_mul(s2.gamma, gamma_u),
-        delta=_g2_mul(s2.delta, delta_u),
-        eta=_g2_mul(s2.eta, eta_u),
-        x=s2.x, y=s2.y,
-    )
+    with timing.span("p2.g2"):
+        g2 = dict(gamma=_g2_mul(s2.gamma, gamma_u), delta=_g2_mul(s2.delta, delta_u),
+                  eta=_g2_mul(s2.eta, eta_u))
+    new_s2 = Sigma2(alpha=s2.alpha, alpha2=s2.alpha2, alpha3=s2.alpha3, alpha4=s2.alpha4,
+                    x=s2.x, y=s2.y, **g2)
     new_sigma = Sigma(G=sigma.G, H=sigma.H, sigma_1=new_s1, sigma_2=new_s2,
                       lagrange_KL=sigma.lagrange_KL)
     return new_sigma, proof
@@ -1056,14 +1092,12 @@ def phase2_verify(prev: Sigma, cur: Sigma, proof: Phase2Proof,
 
     if rng is None:
         rng = secure_rng()
-    device = prev.sigma_1.gamma_inv_o_inst[0].device
-    th = _sigma_hash(prev)
-    for tag, p in ((b"tzk/p2/gamma", proof.proof_gamma),
-                   (b"tzk/p2/delta", proof.proof_delta),
-                   (b"tzk/p2/eta", proof.proof_eta)):
-        if not schnorr_verify(p, tag, th):
-            return False
-    # -- immutable fields must be byte-identical ------------------------
+    with timing.span("p2.verify", "ceremony"):
+        return _verify(prev, cur, proof, rng)
+
+
+def _immutable_equal(prev: Sigma, cur: Sigma) -> bool:
+    """The fields a contribution must leave byte-identical."""
     s1p, s1c, s2p, s2c = (prev.sigma_1, cur.sigma_1,
                           prev.sigma_2, cur.sigma_2)
     if not (_points_equal(prev.G, cur.G) and _points_equal(prev.H, cur.H)
@@ -1073,11 +1107,28 @@ def phase2_verify(prev: Sigma, cur: Sigma, proof: Phase2Proof,
         return False
     if s1p.h_max != s1c.h_max or s1p.rs_y != s1c.rs_y:
         return False
-    if not _packed_equal(s1p.xy_powers, s1c.xy_powers):
-        return False
-    for k in ("alpha", "alpha2", "alpha3", "alpha4", "x", "y"):
-        if not _points_equal(getattr(s2p, k), getattr(s2c, k)):
+    with timing.sync("p2.equal"):
+        if not _packed_equal(s1p.xy_powers, s1c.xy_powers):
             return False
+    return all(_points_equal(getattr(s2p, k), getattr(s2c, k))
+               for k in ("alpha", "alpha2", "alpha3", "alpha4", "x", "y"))
+
+
+def _verify(prev: Sigma, cur: Sigma, proof: Phase2Proof, rng) -> bool:
+    device = prev.sigma_1.gamma_inv_o_inst[0].device
+    th = _sigma_hash(prev)
+    for tag, p in ((b"tzk/p2/gamma", proof.proof_gamma),
+                   (b"tzk/p2/delta", proof.proof_delta),
+                   (b"tzk/p2/eta", proof.proof_eta)):
+        with timing.span("p2.schnorr"):
+            if not schnorr_verify(p, tag, th):
+                return False
+    # -- immutable fields must be byte-identical ------------------------
+    with timing.span("p2.equal"):
+        if not _immutable_equal(prev, cur):
+            return False
+    s1p, s1c, s2p, s2c = (prev.sigma_1, cur.sigma_1,
+                          prev.sigma_2, cur.sigma_2)
     # -- G2 updates carry the claimed exponents -------------------------
     #   e(G1, cur.gamma_G2) == e(X_gamma_g1, prev.gamma_G2)  etc.
     ng = G1.to_affine(G1.neg(G1.from_affine(G1.gen)))
@@ -1086,7 +1137,7 @@ def phase2_verify(prev: Sigma, cur: Sigma, proof: Phase2Proof,
         (s2p.delta, s2c.delta, proof.proof_delta),
         (s2p.eta, s2c.eta, proof.proof_eta),
     ):
-        if not multi_pairing([ng, pk.X_g1], [g2_cur, g2_prev]).is_one():
+        if not _pairing_is_one([ng, pk.X_g1], [g2_cur, g2_prev]):
             return False
     # -- sigma_1.delta / sigma_1.eta scaled by the same exponent as G2 --
     #   e(cur.s1.delta, prev.s2.delta) == e(prev.s1.delta, cur.s2.delta)
@@ -1095,7 +1146,7 @@ def phase2_verify(prev: Sigma, cur: Sigma, proof: Phase2Proof,
         (s1p.eta, s1c.eta, s2p.eta, s2c.eta),
     ):
         nc = G1.to_affine(G1.neg(G1.from_affine(g1_cur)))
-        if not multi_pairing([nc, g1_prev], [g2_prev, g2_cur]).is_one():
+        if not _pairing_is_one([nc, g1_prev], [g2_prev, g2_cur]):
             return False
 
     # -- inverse-scaled families: full random-linear-combination check --
@@ -1107,16 +1158,18 @@ def phase2_verify(prev: Sigma, cur: Sigma, proof: Phase2Proof,
         if comb_prev is None or comb_cur is None:
             return False
         ncb = G1.to_affine(G1.neg(G1.from_affine(comb_cur)))
-        return multi_pairing([ncb, comb_prev], [g2_cur, g2_prev]).is_one()
+        return _pairing_is_one([ncb, comb_prev], [g2_cur, g2_prev])
 
     def fam_check_packed(fam_prev, fam_cur, g2_prev, g2_cur):
         n_prev = int(fam_prev[2].numel())
         n_cur = int(fam_cur[2].numel())
         if n_prev != n_cur:
             return False
-        ws = _rand_fr_limbs(rng, n_prev, device)
-        return rlc_check(msm_mod.msm(ws, *fam_prev), msm_mod.msm(ws, *fam_cur),
-                         g2_prev, g2_cur)
+        with timing.span("p2.rlc"):
+            ws = _rand_fr_limbs(rng, n_prev, device)
+            timing.count("p2.rlc_points", 2 * n_prev)
+            comb_prev, comb_cur = msm_mod.msm(ws, *fam_prev), msm_mod.msm(ws, *fam_cur)
+        return rlc_check(comb_prev, comb_cur, g2_prev, g2_cur)
 
     if not fam_check_packed(s1p.gamma_inv_o_inst, s1c.gamma_inv_o_inst,
                             s2p.gamma, s2c.gamma):
@@ -1145,20 +1198,22 @@ def phase2_verify(prev: Sigma, cur: Sigma, proof: Phase2Proof,
         pts_prev, pts_cur = flatten(list_prev), flatten(list_cur)
         if len(pts_prev) != len(pts_cur):
             return False
-        live_prev, live_cur, ws = [], [], []
-        for a, b in zip(pts_prev, pts_cur):
-            if (a is None) != (b is None):
-                return False
-            if a is None:
-                continue
-            ws.append(_rand_fr(rng))
-            live_prev.append(a)
-            live_cur.append(b)
-        if not ws:
-            return rlc_check(None, None, g2_prev, g2_cur)
-        w = msm_mod.scalars_from_ints(ws, device)
-        return rlc_check(_msm(w, live_prev, device), _msm(w, live_cur, device),
-                         g2_prev, g2_cur)
+        with timing.span("p2.rlc"):
+            live_prev, live_cur, ws = [], [], []
+            for a, b in zip(pts_prev, pts_cur):
+                if (a is None) != (b is None):
+                    return False
+                if a is None:
+                    continue
+                ws.append(_rand_fr(rng))
+                live_prev.append(a)
+                live_cur.append(b)
+            if not ws:
+                return rlc_check(None, None, g2_prev, g2_cur)
+            timing.count("p2.rlc_points", 2 * len(ws))
+            w = msm_mod.scalars_from_ints(ws, device)
+            comb_prev, comb_cur = _msm(w, live_prev, device), _msm(w, live_cur, device)
+        return rlc_check(comb_prev, comb_cur, g2_prev, g2_cur)
 
     for fam_prev, fam_cur in (
         (s1p.delta_inv_alphak_xh_tx, s1c.delta_inv_alphak_xh_tx),

@@ -1,0 +1,9 @@
+"""Seconds a contribution takes, `phase2_contribute`: the program's
+`p2.contribute` root spans in the traced window, their mean.  Read from the
+program's tracer, not from `rec`; None where the program has no such span."""
+
+from zkbench import ceremony_spans
+
+
+def read(rec):
+    return ceremony_spans.mean("p2.contribute")
