@@ -619,3 +619,34 @@ def test_crs_family_loader_on_card(dev, tmp_path, chunk):
             got = RK._FamilyLoader(f.fileno(), size, dev, chunk).family(secs)
             want = RK._FamilyLoader(f.fileno(), size, torch.device("cpu"), chunk).family(secs)
             assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+def test_witness_table_and_grids_on_card(dev):
+    """One 234-placement job of the benchmark's generator at the shipped
+    library's setupParams (659,163 variables): the Montgomery table of its
+    placement variables and the b, u, v and w evaluation grids gathered
+    from it on the card == on the CPU (the plain K1 product)."""
+    import json
+    import os
+
+    from tokamak_zk_evm_tpu_torch.models import witness as W
+    from zkbench import gen
+    from zkbench.entries import port
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "zkbench", "configs", "s256-service.json")) as f:
+        lib = gen.make_library(**json.load(f)["library"])
+    with open(os.path.join(root, "zkbench", "traffic", "full-tx.json")) as f:
+        heavy = tuple(json.load(f)["heavy_share"])
+    job = gen.make_job(lib, 234, gen.rng_for(2**35 + 11, 2, 0), heavy=heavy)
+    placements = port.job_inputs(job)[0]
+    infos, library, params = port.infos(lib), port.library(lib), port.params(lib)
+    assert sum(len(pl.variables) for pl in placements) == 659163
+
+    card, host = W.witness_table(placements, dev), W.witness_table(placements, "cpu")
+    assert card.mont.is_cuda and torch.equal(card.mont.cpu(), host.mont)
+    assert torch.equal(card.index.cpu(), host.index)
+    assert torch.equal(W._b_grid(infos, params, card).cpu(), W._b_grid(infos, params, host))
+    for which in "ABC":
+        assert torch.equal(W._qap_grid(library, params, which, card).cpu(),
+                           W._qap_grid(library, params, which, host)), which

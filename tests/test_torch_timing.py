@@ -8,7 +8,8 @@
   encloses it, stamps on `time.time_ns`, the span tree of the Prover's
   layers, and the subtrees' host self times plus the `sync.*` spans adding
   up to the two roots.
-* The counters of a warm prove, pinned: host waits on the card.
+* The counters of a warm prove, pinned: host waits on the card, and the
+  placement variables converted to Montgomery form (each once).
 * Either MSM core's pull of its results is a `sync.*` span under
   `msm.finish`.
 * The buffer's cap drops events and counter keys and counts them.
@@ -39,24 +40,24 @@ torch.set_num_threads(1)
 
 # a warm toy prove (`Mixer.zero()`): its host waits by site
 SYNC_SITES = {
-    "sync.field.tensor": 220, "sync.poly.find_degree": 31, "sync.msm.nonzero": 22,
+    "sync.field.tensor": 213, "sync.poly.find_degree": 31, "sync.msm.nonzero": 22,
     "sync.msm.unique_consecutive": 22, "sync.msm.chunk_segments": 22,
     "sync.msm.repeat_interleave": 22, "sync.msm.finish_pull": 22,
-    "sync.witness.scatter_index": 7, "sync.binding.indices": 3, "sync.field.host": 2,
+    "sync.witness.upload": 1, "sync.binding.indices": 3, "sync.field.host": 2,
 }
-HOST_SYNCS = sum(SYNC_SITES.values())  # 373
+HOST_SYNCS = sum(SYNC_SITES.values())  # 360
+VARS_CONVERTED = 22  # the toy's placement variables, each converted once
 
 TREE = {  # span -> the parent it has, every one of them
     "init.witness": "prover.init", "init.binding": "prover.init",
-    "witness.bXY": "init.witness", "witness.uXY": "init.witness",
-    "witness.vXY": "init.witness", "witness.wXY": "init.witness",
-    "witness.instance": "init.witness",
+    "witness.convert": "init.witness", "witness.bXY": "init.witness",
+    "witness.uXY": "init.witness", "witness.vXY": "init.witness",
+    "witness.wXY": "init.witness", "witness.instance": "init.witness",
     "binding.host_curve": "init.binding",
     "prove0": "prover.prove", "prove1": "prover.prove", "prove2": "prover.prove",
     "prove3": "prover.prove", "prove4": "prover.prove",
 }
 UNDER = {  # span -> the parents it may have, and those it must appear under
-    "witness.pack": {"witness.bXY", "witness.uXY", "witness.vXY", "witness.wXY"},
     "binding.pack": {"init.binding"},
     "binding.msm": {"init.binding"},
     "transcript": {"prove0", "prove1", "prove2", "prove3"},
@@ -119,7 +120,8 @@ def test_on_under_enable_and_under_the_profiler(toy):
         pr = _prover(toy)
     snap = timing.snapshot()
     assert {e.proof for e in snap.events} == {pr.proof_id}
-    assert {"prover.init", "witness.pack", "binding.host_curve"} <= {e.name for e in snap.events}
+    names = {e.name for e in snap.events}
+    assert {"prover.init", "witness.convert", "binding.host_curve"} <= names
 
     with timing.span("off"):  # tracing is off again: the profiler's period has ended
         pass
@@ -155,7 +157,7 @@ def test_the_span_tree(traced):
         assert parents[name] == {up}, name
     for name, ups in UNDER.items():
         assert parents[name] and parents[name] <= ups, name
-    assert parents["witness.pack"] == UNDER["witness.pack"]
+    assert sum(e.name == "witness.convert" for e in snap.events) == 1
     assert {"prove0", "prove1", "prove2", "prove4"} <= parents["msm.finish"]
     assert parents["transcript"] == UNDER["transcript"]
     syncs = collections.Counter(e.name for e in snap.events if e.name.startswith("sync."))
@@ -184,7 +186,7 @@ def test_counts_of_a_warm_prove(traced):
     for (proof, name, sizes), k in snap.counts.items():
         assert proof == pid
         totals[name] += k
-    assert totals == {"host_syncs": HOST_SYNCS}
+    assert totals == {"host_syncs": HOST_SYNCS, "witness.vars_converted": VARS_CONVERTED}
 
 
 @pytest.mark.parametrize("core", TM.CORES)
@@ -235,7 +237,7 @@ def test_profile_prove_names_idle_gaps_by_the_innermost_span():
 
     spans = [  # nested, as the tracer records them (in closing order)
         ("sync.msm.nonzero", 30, 34), ("binding.pack", 20, 28), ("init.binding", 20, 40),
-        ("witness.pack", 0, 10), ("witness.bXY", 0, 12), ("init.witness", 0, 18),
+        ("witness.convert", 0, 10), ("witness.bXY", 0, 12), ("init.witness", 0, 18),
         ("prover.init", 0, 50), ("msm.finish", 60, 64), ("prove0", 55, 70),
         ("prover.prove", 50, 80),
     ]
@@ -244,11 +246,11 @@ def test_profile_prove_names_idle_gaps_by_the_innermost_span():
     assert busy == 8 + 2 + 2 + 2 + 2 and gaps == [(0, 11), (19, 29), (31, 34),
                                                       (36, 66), (68, 95), (97, 100)]
     out = label_gaps(kernels, spans, 0, 100, top=3)
-    # midpoints 5, 24, 32, 51, 81, 98: witness.pack, binding.pack, the MSM's wait,
+    # midpoints 5, 24, 32, 51, 81, 98: witness.convert, binding.pack, the MSM's wait,
     # prover.prove at its first instant, then none open
-    assert out["by_span"] == {"prover.prove": 30, "outside": 27 + 3, "witness.pack": 11,
+    assert out["by_span"] == {"prover.prove": 30, "outside": 27 + 3, "witness.convert": 11,
                               "binding.pack": 10, "sync.msm.nonzero": 3}
     assert out["longest"] == [["prover.prove", 30, 36], ["outside", 27, 68],
-                              ["witness.pack", 11, 0]]
+                              ["witness.convert", 11, 0]]
     # a child that starts with its parent is the innermost one
     assert label_gaps([], [("outer", 0, 10), ("inner", 0, 4)], 0, 3)["by_span"] == {"inner": 3}

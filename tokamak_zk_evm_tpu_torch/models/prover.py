@@ -261,15 +261,18 @@ class Prover:
             n, s_max, m_i = params.n, params.s_max, params.m_i
 
             with timing.span("init.witness", n=n, s_max=s_max, m_i=m_i):
-                # witness polynomials (init phase, lib.rs:736-775)
+                # witness polynomials (init phase, lib.rs:736-775), all four from
+                # one Montgomery table of the placement variables, freed after
+                table = W.witness_table(placements, dev)
                 with timing.span("witness.bXY"):
-                    self.bXY = W.gen_bXY(placements, infos, params, dev)
+                    self.bXY = W.gen_bXY(placements, infos, params, dev, table)
                 with timing.span("witness.uXY"):
-                    self.uXY = W.gen_uXY(placements, library, params, dev)
+                    self.uXY = W.gen_uXY(placements, library, params, dev, table)
                 with timing.span("witness.vXY"):
-                    self.vXY = W.gen_vXY(placements, library, params, dev)
+                    self.vXY = W.gen_vXY(placements, library, params, dev, table)
                 with timing.span("witness.wXY"):
-                    self.wXY = W.gen_wXY(placements, library, params, dev)
+                    self.wXY = W.gen_wXY(placements, library, params, dev, table)
+                del table
                 self.rXY = None
 
                 # instance polynomials (lib.rs:822-914)
