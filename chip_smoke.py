@@ -49,8 +49,8 @@ Phases, in order (any mismatch or exception exits non-zero):
   4. the toy proof on the card: its digest must be the pinned one and the
      port's verifier must accept it;
   5. the main path at the synthetic full shape (n=4096, s_max=256,
-     m_i=4096) on the default MSM core ("pippenger"): generate_sigma ->
-     Prover.prove() -> preprocess -> verify_snark(), with every kernel's
+     m_i=4096): generate_sigma -> Prover.prove() -> preprocess ->
+     verify_snark(), with every kernel's
      launch counter set to 0 just before and read just after; every kernel
      of that path (B6's scan included) must have launched, and K5 not at
      all.  The run records
@@ -58,12 +58,6 @@ Phases, in order (any mismatch or exception exits non-zero):
      batch sizes and the widths of the batch inversions;
   5c. K3 against its plain version at every call signature phase 5
      recorded, on random grids of those shapes, exact;
-  5b. the second MSM core, "affine_tree" (`ops.msm.use_core`): one 2^22-point
-     MSM against the Pippenger and the O(1) oracle, then phase 5's path again
-     on the same CRS (counters set to 0 before, read after): its proof bytes
-     must equal phase 5's, it must verify, and K5 and the batch inversion
-     must have launched while K4's MSM stages did not; the widths of its
-     batch inversions are counted by power of two;
   5d. the file-contract path: `build_synthetic()` staged as reference-layout
      files (library dir, the synthesizer's three JSONs), then the port's CLI
      (`cli.main`, in this process, counters set to 0 before and read after):
@@ -724,7 +718,7 @@ def check_affine(torch, np, K, dev, n=1 << 20):
 
 
 # ---------------------------------------------------------------------------
-# phases 4, 5 and 5b: proofs
+# phases 4 and 5: proofs
 # ---------------------------------------------------------------------------
 
 
@@ -749,17 +743,15 @@ def prove_toy(np, dev):
     expect(ok is True, "toy proof verifies (port Verifier)")
 
 
-def drive(torch, np, K, dev, fx, core, sigma=None):
-    """The main path on MSM core `core`: setup (unless `sigma` is given),
-    Prover init, prove, preprocess, verify; every launch counter set to 0
-    just before and read just after.  -> (sigma, proof bytes, counts)."""
-    from tokamak_zk_evm_tpu_torch.io.artifacts import canonical_proof_bytes
+def drive(torch, np, K, dev, fx):
+    """The main path: setup, Prover init, prove, preprocess, verify; every
+    launch counter set to 0 just before and read just after.
+    -> (sigma, counts)."""
     from tokamak_zk_evm_tpu_torch.models.preprocess import preprocess
     from tokamak_zk_evm_tpu_torch.models.protocol import Mixer
     from tokamak_zk_evm_tpu_torch.models.prover import Prover
     from tokamak_zk_evm_tpu_torch.models.setup import Tau, generate_sigma
     from tokamak_zk_evm_tpu_torch.models.verifier import Verifier
-    from tokamak_zk_evm_tpu_torch.ops import msm as TM
     from tokamak_zk_evm_tpu_torch.utils import timing
 
     p = fx.params
@@ -767,12 +759,11 @@ def drive(torch, np, K, dev, fx, core, sigma=None):
     torch.cuda.reset_peak_memory_stats()
     K.reset_counts()
     t = {}
-    with TM.use_core(core), timing.tracing():
-        if sigma is None:
-            t0 = time.perf_counter()
-            sigma = generate_sigma(p, Tau.fixed(), fx.library, fx.infos, device=dev)
-            torch.cuda.synchronize()
-            t["setup"] = time.perf_counter() - t0
+    with timing.tracing():
+        t0 = time.perf_counter()
+        sigma = generate_sigma(p, Tau.fixed(), fx.library, fx.infos, device=dev)
+        torch.cuda.synchronize()
+        t["setup"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         prover = Prover(p, sigma, fx.library, fx.infos, fx.placements, fx.permutation,
                         fx.instance, mixer=Mixer.random(np.random.default_rng(3)), device=dev)
@@ -794,10 +785,10 @@ def drive(torch, np, K, dev, fx, core, sigma=None):
     log("  spans (s): " + json.dumps({k: round(v, 3) for k, v in spans.items()}))
     log("  kernels " + json.dumps(counts))
     log(f"  peak device memory {peak / 2**30:.3f} GiB")
-    expect(ok is True, f"full-shape proof verifies (port Verifier, MSM core {core})")
+    expect(ok is True, "full-shape proof verifies (port Verifier)")
     del prover, pre
     torch.cuda.empty_cache()
-    return sigma, canonical_proof_bytes(proof), counts
+    return sigma, counts
 
 
 # phase 5d's staged directories, under one scratch directory
@@ -1386,31 +1377,6 @@ def check_ntt_calls(torch, K, dev, calls):
     torch.cuda.empty_cache()
 
 
-def affine_msm_check(torch, np, K, dev, n=1 << 22):
-    """One n-point MSM through the affine tree == Pippenger == oracle."""
-    from tokamak_zk_evm_tpu_torch.ops import msm as TM
-
-    k, px, py, pinf, want = oracle_inputs(torch, np, K, dev, np.random.default_rng(5), n)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    with TM.use_core("affine_tree"):
-        got = TM.msm(k, px, py, pinf)
-    secs = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    t0 = time.perf_counter()
-    pip = TM.msm(k, px, py, pinf)
-    pip_secs = time.perf_counter() - t0
-    log(f"  {n}-point MSM: affine_tree {secs:.3f} s (peak {peak / 2**30:.3f} GiB), "
-        f"pippenger {pip_secs:.3f} s")
-    expect(got == want, f"affine_tree MSM of {n} points == (sum k_i c_i) G")
-    expect(got == pip, f"affine_tree MSM of {n} points == pippenger")
-    del k, px, py, pinf
-    torch.cuda.empty_cache()
-    return {"affine_tree_s": round(secs, 4), "affine_tree_peak_gib": round(peak / 2**30, 3),
-            "pippenger_s": round(pip_secs, 4)}
-
-
 # ---------------------------------------------------------------------------
 # phase 6: timings and bounds
 # ---------------------------------------------------------------------------
@@ -1672,10 +1638,10 @@ def measure(torch, np, K, dev, counts, fixed_sizes):
     # K2.  The per-element inversion (batches up to BINV_EACH, and the tile
     # totals of wider ones) at 4096 Fr, then Fq 4096 and both at 1; bound:
     # the batch read and written once, and the gcd batches these inputs take.  The batch inversion at prove1's
-    # grand-product denominators (m_i * s_max = 2^20 Fr), then in Fq at the
-    # affine tree's widest level and setup's xy_powers family (2^22), at
-    # 2^10, and at 1 (the latency of every call); bound: the batch read and
-    # written once, 3 (n - 1) products and one inversion.
+    # grand-product denominators (m_i * s_max = 2^20 Fr), then in Fq at
+    # setup's xy_powers family (2^22), at 2^10, and at 1 (the latency of
+    # every call); bound: the batch read and written once, 3 (n - 1)
+    # products and one inversion.
     n = 4096
     a = T(rand_field(np, rng, FR, n))
     row(K.FIELD_INV, "Fr inverse 4096", lambda: K.field_inv(0, a),
@@ -1874,8 +1840,7 @@ def measure(torch, np, K, dev, counts, fixed_sizes):
     log(f"  {K.MSM_WINDOW.name:18s} level 1 alone {level1_ms:10.3f} ms, "
         f"all levels at 8/2 {seg8_ms:10.3f} ms")
     torch.cuda.empty_cache()
-    # K5 at the affine tree's widest merge level at 2^22 points (wb = 2
-    # windows of 2^21 pairs), every lane a P+Q add: aff_post does its three
+    # K5 at 2^22 lanes, every lane a P+Q add: aff_post does its three
     # products on every lane, the most it does for any lane but a doubling
     n = 1 << 22
     x1, y1, x2, y2 = planted_affine(torch, np, K, dev, rng, n, "add")
@@ -2007,10 +1972,10 @@ def main() -> int:
     prove_toy(np, dev)
     log(f"    {time.perf_counter() - t0:.3f} s")
 
-    log("[5] main path: synthetic full shape on the card, MSM core pippenger")
+    log("[5] main path: synthetic full shape on the card")
     fx = CD.synthetic_fixture()
     with recording(K) as calls:
-        sigma, proof, counts = drive(torch, np, K, dev, fx, "pippenger")
+        sigma, counts = drive(torch, np, K, dev, fx)
     affine = [K.AFF_PRE.name, K.AFF_POST.name]
     b13 = [K.G1_ADD.name, K.G1_DBL.name, K.G1_TO_AFFINE.name]
     # the ceremony's: setup and prove add no jacobian points on the card, and
@@ -2024,15 +1989,6 @@ def main() -> int:
     log(f"[5c] K3 at each of the {len(calls['ntt'])} call signatures of phase 5 "
         f"(grid, axis, tables): kernel == plain, exact")
     check_ntt_calls(torch, K, dev, calls["ntt"])
-
-    log("[5b] MSM core affine_tree: a 2^22-point MSM, then the main path again")
-    msm_stats = affine_msm_check(torch, np, K, dev)
-    with recording(K) as calls_b:
-        _, proof_b, counts_b = drive(torch, np, K, dev, fx, "affine_tree", sigma)
-    log("  batch inversions by width: " + json.dumps(calls_b["batch_inv"]))
-    expect(proof_b == proof, "affine_tree proof bytes == pippenger proof bytes")
-    expect_launches(counts_b, affine + [K.FIELD_INV.name, K.BATCH_INV.name, K.FR_SCAN.name],
-                    [K.MSM_BUCKET_SUM.name, K.MSM_WINDOW.name], "affine_tree path")
 
     log("[5d] the file-contract path: the port's CLI, setup -> preprocess -> prove -> verify "
         f"through files at the synthetic full shape ({gpu_line()})")
@@ -2101,13 +2057,9 @@ def main() -> int:
 
     log("[6] kernel times (CUDA events) beside plain versions and bounds")
     counts_5 = dict(counts)
-    counts.update({n: counts_b[n] for n in affine})
     counts.update({n: counts_e[n] for n in b13})  # B13's path is the ceremony
     rows = measure(torch, np, K, dev, counts, sorted(calls["fixed_base"]))
-    next(r for r in rows if r["name"] == K.AFF_POST.name)["affine_tree_msm_2^22"] = msm_stats
     binv_row = next(r for r in rows if r["name"] == K.BATCH_INV.name)
-    for kern in (K.FIELD_INV, K.BATCH_INV, K.FR_SCAN, K.G1_TO_AFFINE):
-        next(r for r in rows if r["name"] == kern.name)["launches_5b"] = counts_b[kern.name]
     for r in rows:
         if r["name"] in widths_e:
             r["ceremony_5e"] = widths_e[r["name"]]
@@ -2119,7 +2071,6 @@ def main() -> int:
             r["launches_5"] = counts_5[r["name"]]
     binv_row["widths_5"] = calls["batch_inv"]
     next(r for r in rows if r["name"] == K.NTT.name)["nccl_one_rank_5f"] = report["rows"]
-    binv_row["widths_5b"] = calls_b["batch_inv"]
 
     gc.collect()  # the earlier phases' tensors: the bench finds the card as a user's would
     torch.cuda.empty_cache()

@@ -339,21 +339,6 @@ def test_affine_add_kernels(dev):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-def test_affine_tree_matches_pippenger(dev):
-    from tokamak_zk_evm_tpu_torch.ops import msm as TM
-
-    n = 1 << 16
-    table = K.fixed_base_table(*G1.gen, dev)
-    c = rand(FR, n, 7, dev)
-    c[1:] = 0
-    c[0] %= 997  # few distinct points: repeats and a few infinities
-    px, py, pinf = K.g1_to_affine(K.g1_fixed_base(c, table))
-    sc = rand(FR, n, 8, dev)
-    want = TM.msm(sc, px, py, pinf)
-    with TM.use_core("affine_tree"):
-        assert TM.msm(sc, px, py, pinf) == want
-
-
 @pytest.mark.parametrize("shape,axis", [((3, 1 << 12), 2), ((1 << 12, 5), 1)])
 def test_ntt_past_two_passes(dev, shape, axis, monkeypatch):
     """`fr_ntt` past `NTT_MAX_N` runs the four-step split (two K3 calls and

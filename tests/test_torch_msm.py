@@ -3,10 +3,15 @@
 Every MSM at 2^4..2^10 points and at two non-power-of-two counts mixes
 infinities, zero scalars, the scalar r-1 and heavily repeated points (so
 buckets double and cancel), and must give the same host point as the JAX
-package's MSM.  `fixed_base_msm_points` and the jacobian ops must give the
-same affine points too, and the plain fixed-base op on a 12-bit window table
-the same points as host scalar muls.  Tolerance: exact (points are compared
-as integers).
+package's MSM; so must MSMs with one hot bucket (an eighth of the lanes on
+one scalar and one point) and the small sums (all zero scalars, a
+cancelling pair, r-1 times one point).  The plan's digits recombine to
+their scalars at every window width `msm_window_bits` picks, that width
+stays in [4, 16], and its chunks match a plain model at the chunk edges.
+`fixed_base_msm_points` and the jacobian ops must give the same affine
+points too, and the plain fixed-base op on a 12-bit window table the same
+points as host scalar muls.  Tolerance: exact (points are compared as
+integers).
 """
 
 import numpy as np
@@ -54,6 +59,87 @@ def test_msm_matches_jax(n):
     tx, ty, ti = TC.pack_affine(pts, "cpu")
     got = TM.msm(TM.scalars_from_ints(ks, "cpu"), tx, ty, ti)
     assert got == want
+
+
+def hot_bucket_inputs(n, seed):
+    """Repeated points, zero scalars, infinities, the scalar r-1, and a hot
+    bucket: an eighth of the lanes share one scalar (so one digit per
+    window) and one point."""
+    rng = np.random.default_rng(seed)
+    pts = [_BASE[int(i)] for i in rng.integers(0, len(_BASE), size=n)]
+    ks = [int.from_bytes(rng.bytes(32), "little") % R_MOD for _ in range(n)]
+    for i in rng.integers(0, n, size=max(1, n // 8)):
+        pts[int(i)] = None
+    for i in rng.integers(0, n, size=max(1, n // 8)):
+        ks[int(i)] = 0
+    hot = int.from_bytes(rng.bytes(32), "little") % R_MOD
+    for i in rng.integers(0, n, size=max(2, n // 8)):
+        ks[int(i)], pts[int(i)] = hot, _BASE[3]
+    ks[0] = R_MOD - 1
+    return ks, pts
+
+
+@pytest.mark.parametrize("n", [1 << 8, (1 << 10) + 3])
+def test_msm_hot_bucket_matches_jax(n):
+    ks, pts = hot_bucket_inputs(n, n)
+    want = JM.msm(JM.scalars_from_ints(ks), *JC.pack_affine(pts))
+    tx, ty, ti = TC.pack_affine(pts, "cpu")
+    assert TM.msm(TM.scalars_from_ints(ks, "cpu"), tx, ty, ti) == want
+
+
+@pytest.mark.parametrize("case", ["all zero scalars", "cancelling pair", "one point"])
+def test_msm_small_sums(case):
+    p = _BASE[2]
+    ks, pts, want = {
+        "all zero scalars": ([0, 0, 0], [_BASE[0], _BASE[1], None], None),
+        "cancelling pair": ([9, 9], [p, (p[0], (-p[1]) % Q_MOD)], None),
+        "one point": ([R_MOD - 1], [p], (p[0], (-p[1]) % Q_MOD)),
+    }[case]
+    tx, ty, ti = TC.pack_affine(pts, "cpu")
+    assert TM.msm(TM.scalars_from_ints(ks, "cpu"), tx, ty, ti) == want
+
+
+@pytest.mark.parametrize("c", range(4, 17))
+def test_digits_recombine_at_every_window_width(c):
+    """`_digits` at each width `msm_window_bits` can pick: every digit is
+    below 2^c and sum_w d_w 2^(c w) is the scalar (0, 1, r - 1, all-ones
+    and seeded scalars)."""
+    n = 1 << (c + 2)
+    assert K.msm_window_bits(n) == c
+    rng = np.random.default_rng(c)
+    ks = [0, 1, R_MOD - 1, (1 << 254) - 1, 1 << 254, (1 << c) - 1, 1 << c]
+    ks += [int.from_bytes(rng.bytes(32), "little") % R_MOD for _ in range(9)]
+    nwin = -(-255 // c)
+    d = K._digits(TM.scalars_from_ints(ks, "cpu"), c, nwin)
+    assert d.dtype == torch.int64 and d.shape == (nwin, len(ks))
+    assert int(d.min()) >= 0 and int(d.max()) < 1 << c
+    assert [sum(int(d[w, i]) << (c * w) for w in range(nwin)) for i in range(len(ks))] == ks
+
+
+@pytest.mark.parametrize("n,c", [(1, 4), (127, 4), (1 << 19, 16), (10_815_960, 16)])
+def test_window_bits_stay_in_the_digit_range(n, c):
+    """`msm_window_bits` clamps to [4, 16]: `_digits` reads three 16-bit
+    limbs a digit, so no width past 16 may reach it, even at the CRS's
+    10,815,960 points."""
+    assert K.msm_window_bits(n) == c
+
+
+@pytest.mark.parametrize("counts", [[1], [32], [33], [64], [31, 32, 33, 64, 65],
+                                    [1, 95, 96, 97, 1], [1025]])
+def test_chunk_segments_match_a_plain_model(counts):
+    """Segment k (counts[k] entries, laid end to end) is cut into chunks of
+    at most MSM_CHUNK entries, in order: (start, length) of every chunk and
+    the chunks of every segment."""
+    starts, lengths, nch, first = [], [], [], 0
+    for n in counts:
+        cuts = list(range(0, n, K.MSM_CHUNK))
+        starts += [first + c for c in cuts]
+        lengths += [min(K.MSM_CHUNK, n - c) for c in cuts]
+        nch.append(len(cuts))
+        first += n
+    start, length, per_seg = K.chunk_segments(torch.as_tensor(counts, dtype=torch.int64))
+    assert all(t.dtype == torch.int64 for t in (start, length, per_seg))
+    assert (start.tolist(), length.tolist(), per_seg.tolist()) == (starts, lengths, nch)
 
 
 def test_msm_of_nothing_is_infinity():

@@ -62,17 +62,16 @@ def cases(world):
          ("coset_fwd", "case_bintt_coset", (GRID, False) + COSET),
          ("coset_inv", "case_bintt_coset", (GRID_EV, True) + COSET),
          ("msm", "case_msm", MSM_64[0]),
-         ("msm_pad", "case_msm", MSM_63[0] + ("pippenger", False, False)),
+         ("msm_pad", "case_msm", MSM_63[0] + (False, False)),
          ("global_mesh", "case_global_mesh", ()),
          ("submesh", "case_bintt_submesh", (GRID,))]
     if world == 2:
-        c += [("msm_affine", "case_msm", MSM_63[0] + ("affine_tree", False, False)),
-              ("prove", "case_prove", ()),
+        c += [("prove", "case_prove", ()),
               ("mixers", "case_mixers", (True,))]
     if world == 4:
         c += [("bintt_2d", "case_bintt_dist", (GRID, False, True)),
               ("bintt_2d_inv", "case_bintt_dist", (GRID_EV, True, True)),
-              ("msm_2d", "case_msm", MSM_64[0] + ("pippenger", True)),
+              ("msm_2d", "case_msm", MSM_64[0] + (True,)),
               ("mixers", "case_mixers", (False,))]
     return c
 
@@ -148,14 +147,6 @@ def test_msm_padding_to_mesh_size(ranks, world):
     want = C.G1.msm_affine(scalars, pts)
     assert msm_mod.msm(*(jnp.asarray(a) for a in (s, px, py, pinf))) == want
     for r, res in enumerate(result(ranks, world, "msm_pad")):
-        assert res["ops"] == want, f"rank {r}"
-        assert res["counts"]["msm_dist"] == 1
-
-
-def test_msm_dist_affine_tree_core(ranks):
-    (_, _, _, _), scalars, pts = MSM_63
-    want = C.G1.msm_affine(scalars, pts)
-    for r, res in enumerate(result(ranks, 2, "msm_affine")):
         assert res["ops"] == want, f"rank {r}"
         assert res["counts"]["msm_dist"] == 1
 

@@ -178,7 +178,7 @@ def test_witness_grids_match_jax_at_small_synthetic_shape(small_fixtures, builde
     p = jfx.params
     if builder == "bXY":
         j = [JW.gen_bXY(jfx.placements, jfx.infos, p)]
-        t = [TW.gen_bXY(tfx.placements, tfx.infos, tfx.params, "cpu")]
+        t = [TW.gen_bXY(tfx.infos, tfx.params, TW.witness_table(tfx.placements, "cpu"))]
     elif builder == "perm":
         j = JW.permutation_to_polys(jfx.permutation, p.m_i, p.s_max)
         t = TW.permutation_to_polys(tfx.permutation, p.m_i, p.s_max, "cpu")
@@ -187,7 +187,8 @@ def test_witness_grids_match_jax_at_small_synthetic_shape(small_fixtures, builde
         t = [TW.gen_a_free_X(tfx.instance, tfx.params, "cpu")]
     else:
         j = [getattr(JW, f"gen_{builder}")(jfx.placements, jfx.library, p)]
-        t = [getattr(TW, f"gen_{builder}")(tfx.placements, tfx.library, tfx.params, "cpu")]
+        t = [getattr(TW, f"gen_{builder}")(tfx.library, tfx.params,
+                                           TW.witness_table(tfx.placements, "cpu"))]
     for a, b in zip(j, t):
         assert np.array_equal(b.coeffs.numpy().astype(np.uint32),
                               np.asarray(a.coeffs).astype(np.uint32))

@@ -10,8 +10,7 @@
   up to the two roots.
 * The counters of a warm prove, pinned: host waits on the card, and the
   placement variables converted to Montgomery form (each once).
-* Either MSM core's pull of its results is a `sync.*` span under
-  `msm.finish`.
+* The MSM's pull of its results is a `sync.*` span under `msm.finish`.
 * The buffer's cap drops events and counter keys and counts them.
 * `utils/profile_prove.py` names idle gaps by the innermost span open at
   each gap's midpoint, on synthetic intervals.
@@ -26,7 +25,6 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from tokamak_zk_evm_tpu_torch.backend import msm_affine as MA
 from tokamak_zk_evm_tpu_torch.host.curve import G1, g1_scalar_mul_affine
 from tokamak_zk_evm_tpu_torch.models.protocol import Mixer
 from tokamak_zk_evm_tpu_torch.models.prover import Prover
@@ -189,17 +187,16 @@ def test_counts_of_a_warm_prove(traced):
     assert totals == {"host_syncs": HOST_SYNCS, "witness.vars_converted": VARS_CONVERTED}
 
 
-@pytest.mark.parametrize("core", TM.CORES)
-def test_either_msm_core_spans_its_pull(core):
+def test_the_msm_spans_its_pull():
     pts = [g1_scalar_mul_affine(G1.gen, k) for k in (1, 2, 3)]
     s = TM.scalars_from_ints([5, 7, 11], "cpu")
     tx, ty, ti = TC.pack_affine(pts, "cpu")
-    with TM.use_core(core), timing.tracing():
+    with timing.tracing():
         TM.msm(s, tx, ty, ti)
     snap = timing.snapshot()
     name = {e.id: e.name for e in snap.events}
     pulls = [e for e in snap.events if e.name == "sync.msm.finish_pull"]
-    assert len(pulls) == (1 if core == "pippenger" else len(MA.pow2_chunks(3)))
+    assert len(pulls) == 1
     assert {name[e.parent] for e in pulls} == {"msm.finish"}
 
 

@@ -179,18 +179,15 @@ def test_the_table_is_every_variable_in_montgomery_form(inputs):
 @pytest.mark.parametrize("poly", ["bXY", "uXY", "vXY", "wXY"])
 def test_grids_equal_the_four_pass_versions(inputs, poly):
     placements, infos, library, params = inputs
+    table = W.witness_table(placements, "cpu")
     if poly == "bXY":
         want = old_gen_bXY(placements, infos, params, "cpu")
-        shared = W.gen_bXY(placements, infos, params, "cpu", W.witness_table(placements, "cpu"))
-        own = W.gen_bXY(placements, infos, params, "cpu")
+        shared = W.gen_bXY(infos, params, table)
     else:
         which = {"uXY": "A", "vXY": "B", "wXY": "C"}[poly]
-        fn = getattr(W, f"gen_{poly}")
         want = old_gen_qap_xy(placements, library, params, which, "cpu")
-        shared = fn(placements, library, params, "cpu", W.witness_table(placements, "cpu"))
-        own = fn(placements, library, params, "cpu")
+        shared = getattr(W, f"gen_{poly}")(library, params, table)
     assert torch.equal(shared.coeffs, want.coeffs)
-    assert torch.equal(own.coeffs, want.coeffs)
 
 
 def test_corrupted_placement_raises():
@@ -198,10 +195,10 @@ def test_corrupted_placement_raises():
     bad = [Placement(pl.subcircuit_id, list(pl.variables)) for pl in placements]
     bad[1].variables.append(7)
     with pytest.raises(ValueError, match="corrupted placement variables"):
-        W.gen_bXY(bad, infos, params, "cpu")
+        W.gen_bXY(infos, params, W.witness_table(bad, "cpu"))
     bad[1].variables[-2:] = []
     with pytest.raises(ValueError, match="shorter than their subcircuit's wires"):
-        W.gen_uXY(bad, library, params, "cpu")
+        W.gen_uXY(library, params, W.witness_table(bad, "cpu"))
 
 
 @pytest.fixture(scope="module")

@@ -79,9 +79,9 @@ def case_bintt_submesh(grid):
     return ntt_dist.bintt_dist(g[:, row_slice(mesh, g.shape[1])], mesh).numpy()
 
 
-def case_msm(scalars, px, py, pinf, core="pippenger", two_d=False, direct=True):
+def case_msm(scalars, px, py, pinf, two_d=False, direct=True):
     """`msm_dist` on the whole mesh (when the count divides), and
-    `ops.msm.msm` under the mesh (padding), on MSM core `core`."""
+    `ops.msm.msm` under the mesh (padding)."""
     from tokamak_zk_evm_tpu_torch.ops import msm as TM
     from tokamak_zk_evm_tpu_torch.parallel import context, msm_dist
     from tokamak_zk_evm_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d, reset_counts
@@ -90,11 +90,10 @@ def case_msm(scalars, px, py, pinf, core="pippenger", two_d=False, direct=True):
     args = (_t(scalars), _t(px), _t(py), _t(pinf))
     reset_counts()
     out = {}
-    with TM.use_core(core):
-        if direct:
-            out["direct"] = msm_dist.msm_dist(*args, mesh)
-        with context.use_mesh(mesh):
-            out["ops"] = TM.msm(*args)
+    if direct:
+        out["direct"] = msm_dist.msm_dist(*args, mesh)
+    with context.use_mesh(mesh):
+        out["ops"] = TM.msm(*args)
     out["counts"] = _dist_counts()
     return out
 

@@ -265,13 +265,13 @@ class Prover:
                 # one Montgomery table of the placement variables, freed after
                 table = W.witness_table(placements, dev)
                 with timing.span("witness.bXY"):
-                    self.bXY = W.gen_bXY(placements, infos, params, dev, table)
+                    self.bXY = W.gen_bXY(infos, params, table)
                 with timing.span("witness.uXY"):
-                    self.uXY = W.gen_uXY(placements, library, params, dev, table)
+                    self.uXY = W.gen_uXY(library, params, table)
                 with timing.span("witness.vXY"):
-                    self.vXY = W.gen_vXY(placements, library, params, dev, table)
+                    self.vXY = W.gen_vXY(library, params, table)
                 with timing.span("witness.wXY"):
-                    self.wXY = W.gen_wXY(placements, library, params, dev, table)
+                    self.wXY = W.gen_wXY(library, params, table)
                 del table
                 self.rXY = None
 

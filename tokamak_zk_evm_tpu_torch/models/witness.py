@@ -10,7 +10,7 @@ A job's placement variables are converted to Montgomery limbs once:
 them to the device in one copy and multiplies them by R^2 mod r there with
 K1's `fr_mul`.  The Prover builds that table in `init.witness` and hands it
 to `gen_bXY`, `gen_uXY`, `gen_vXY` and `gen_wXY`, which gather their
-entries from it; called without one, each builds its own.
+entries from it.
 """
 
 from __future__ import annotations
@@ -117,12 +117,9 @@ def _b_grid(infos: list[SubcircuitInfo], params: SetupParams, table: WitnessTabl
     return grid
 
 
-def gen_bXY(placements: list[Placement], infos: list[SubcircuitInfo],
-            params: SetupParams, device, table: WitnessTable | None = None) -> BiPoly:
+def gen_bXY(infos: list[SubcircuitInfo], params: SetupParams, table: WitnessTable) -> BiPoly:
     """Interface-witness grid b(X,Y): rows = interface wires [l, l_D),
     columns = placements."""
-    if table is None:
-        table = witness_table(placements, device)
     return BiPoly.from_rou_evals(_b_grid(infos, params, table))
 
 
@@ -192,24 +189,16 @@ def _qap_grid(library: list[SubcircuitR1CS], params: SetupParams, which: str,
     return _reduce_u32_grid(acc & 0xFFFFFFFF).reshape(F.FR_L, n, s_max)
 
 
-def _gen_qap_xy(placements: list[Placement], library: list[SubcircuitR1CS],
-                params: SetupParams, which: str, device,
-                table: WitnessTable | None) -> BiPoly:
-    if table is None:
-        table = witness_table(placements, device)
-    return BiPoly.from_rou_evals(_qap_grid(library, params, which, table))
+def gen_uXY(library: list[SubcircuitR1CS], params: SetupParams, table: WitnessTable) -> BiPoly:
+    return BiPoly.from_rou_evals(_qap_grid(library, params, "A", table))
 
 
-def gen_uXY(placements, library, params, device, table=None):
-    return _gen_qap_xy(placements, library, params, "A", device, table)
+def gen_vXY(library: list[SubcircuitR1CS], params: SetupParams, table: WitnessTable) -> BiPoly:
+    return BiPoly.from_rou_evals(_qap_grid(library, params, "B", table))
 
 
-def gen_vXY(placements, library, params, device, table=None):
-    return _gen_qap_xy(placements, library, params, "B", device, table)
-
-
-def gen_wXY(placements, library, params, device, table=None):
-    return _gen_qap_xy(placements, library, params, "C", device, table)
+def gen_wXY(library: list[SubcircuitR1CS], params: SetupParams, table: WitnessTable) -> BiPoly:
+    return BiPoly.from_rou_evals(_qap_grid(library, params, "C", table))
 
 
 def permutation_to_polys(entries: list[PermutationEntry], m_i: int, s_max: int,

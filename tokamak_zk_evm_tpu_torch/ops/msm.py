@@ -1,53 +1,26 @@
 """Multi-scalar multiplication (limb-major, kernel-dispatched).
 
 Scalars are canonical (non-Montgomery) [16, N] limb tensors; points are
-affine Montgomery ([24, N], [24, N], [N]).  Two device cores compute the
-same sum, chosen by `use_core`:
-
-  * "pippenger" (the default): K4's bucket sums and window reduce
-    (`backend/kernels.py` g1_msm_start), one jacobian point per window;
-  * "affine_tree": the JAX package's unpacked configuration, a sorted merge
-    tree on K5's batched affine adds (`backend/msm_affine.py`), affine
-    singles per window and level.
-
-`msm_start` runs the current core; `msm_finish` knows an affine-tree
-handle by its type (`msm_affine.Handle`), pulls the core's points and
-combines them on the host.  Result: host affine point ((x, y) ints) or None.
-Under a mesh of more than one rank (`parallel.context.use_mesh`) the points
-are split across the ranks (`parallel.msm_dist`), each running the current
-core on its block.
+affine Montgomery ([24, N], [24, N], [N]).  Every MSM runs K4's Pippenger:
+`msm_start` enqueues the bucket sums and the window reduce
+(`backend/kernels.py` g1_msm_start, one jacobian point per window) and
+`msm_finish` pulls those points and combines them on the host.  Result:
+host affine point ((x, y) ints) or None.  Under a mesh of more than one rank
+(`parallel.context.use_mesh`) the points are split across the ranks
+(`parallel.msm_dist`), each running the same Pippenger on its block.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..backend import kernels as K
-from ..backend import msm_affine as MA
 from ..fields import R_MOD
 from ..utils import timing
 from . import field as F
-
-CORES = ("pippenger", "affine_tree")
-_core = "pippenger"
-
-
-@contextlib.contextmanager
-def use_core(name: str):
-    """Start every MSM inside the block on core `name` (see the module
-    docstring); the previous core is restored on exit."""
-    global _core
-    if name not in CORES:
-        raise ValueError(f"unknown MSM core {name!r}; cores: {list(CORES)}")
-    prev, _core = _core, name
-    try:
-        yield
-    finally:
-        _core = prev
 
 
 class Done(NamedTuple):
@@ -56,16 +29,9 @@ class Done(NamedTuple):
     point: object
 
 
-def start_local(scalars_canonical, px, py, pinf):
-    """Enqueue the device part of an MSM on this device's current core."""
-    start = MA.g1_msm_start if _core == "affine_tree" else K.g1_msm_start
-    return start(scalars_canonical.contiguous(), px, py, pinf)
-
-
 def msm_start(scalars_canonical, px, py, pinf):
-    """Enqueue the device part of an MSM on the current core; `msm_finish`
-    brings the point home.  A round starts all its commitments before
-    finishing any.
+    """Enqueue the device part of an MSM; `msm_finish` brings the point
+    home.  A round starts all its commitments before finishing any.
 
     Under a mesh of more than one rank the points are padded to a multiple
     of the mesh size (zero scalars on infinities) and split across the
@@ -75,7 +41,7 @@ def msm_start(scalars_canonical, px, py, pinf):
 
     mesh = context.get_mesh()
     if mesh is None or mesh.size <= 1:
-        return start_local(scalars_canonical, px, py, pinf)
+        return K.g1_msm_start(scalars_canonical.contiguous(), px, py, pinf)
     from ..parallel import msm_dist
 
     pad = -px.shape[1] % mesh.size
@@ -86,12 +52,6 @@ def msm_start(scalars_canonical, px, py, pinf):
         py = torch.cat([py, py.new_zeros(py.shape[0], pad)], 1)
         pinf = torch.cat([pinf, pinf.new_ones(pad)])
     return Done(msm_dist.msm_dist(scalars_canonical, px, py, pinf, mesh))
-
-
-def finish_rows(handle):
-    """The jacobian [3, 24] rows (Montgomery limbs, CPU) of a local MSM."""
-    finish = MA.g1_msm_finish if isinstance(handle, MA.Handle) else K.g1_msm_finish
-    return finish(handle)
 
 
 def rows_jacobian(rows):
@@ -107,7 +67,7 @@ def msm_finish(handle):
     if isinstance(handle, Done):
         return handle.point
     with timing.span("msm.finish"):
-        return G1.to_affine(rows_jacobian(finish_rows(handle)))
+        return G1.to_affine(rows_jacobian(K.g1_msm_finish(handle)))
 
 
 def msm(scalars_canonical, px, py, pinf):

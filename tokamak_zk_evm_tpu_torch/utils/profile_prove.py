@@ -2,7 +2,7 @@
 device busy share, the kernels that take the device time, and the idle gaps
 named by the program's own spans.
 
-    python -m tokamak_zk_evm_tpu_torch.utils.profile_prove [--core NAME] [--out DIR]
+    python -m tokamak_zk_evm_tpu_torch.utils.profile_prove [--out DIR]
 
 Builds `build_synthetic()` at its defaults, runs setup twice (the first
 builds and loads every kernel; the second, warm, is timed) and one untraced
@@ -14,9 +14,8 @@ intervals), the busy share, the device seconds of every CUDA kernel (most
 first), the seconds by program span, and the idle time by the innermost
 program span open at each gap's midpoint: every gap's seconds under its
 span's name, and the ten longest gaps.  Spans and device events share the
-`time.time_ns` clock.  `--out DIR` also writes the Chrome trace there;
-`--core` picks the MSM core both proofs run on (`ops.msm.use_core`:
-"pippenger", the default, or "affine_tree").  Needs a CUDA device.
+`time.time_ns` clock.  `--out DIR` also writes the Chrome trace there.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -74,7 +73,6 @@ def label_gaps(intervals, spans, t0: int, t1: int, top: int = 10) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description="profile one full-shape proof")
     ap.add_argument("--out", help="directory for the Chrome trace")
-    ap.add_argument("--core", default="pippenger", help="MSM core (ops.msm.CORES)")
     args = ap.parse_args()
 
     import numpy as np
@@ -84,7 +82,6 @@ def main() -> None:
     from ..models.protocol import Mixer
     from ..models.prover import Prover
     from ..models.setup import Tau, generate_sigma
-    from ..ops import msm
     from ..testing.synthetic import build_synthetic
     from . import timing
 
@@ -101,15 +98,13 @@ def main() -> None:
 
     def proof():
         """(init seconds, prove seconds), each closed by a synchronize."""
-        with msm.use_core(args.core):
-            t0 = time.perf_counter()
-            pr = Prover(p, sigma, fx.library, fx.infos, fx.placements, fx.permutation,
-                        fx.instance, mixer=Mixer.random(np.random.default_rng(3)),
-                        device="cuda")
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            pr.prove()
-            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pr = Prover(p, sigma, fx.library, fx.infos, fx.placements, fx.permutation,
+                    fx.instance, mixer=Mixer.random(np.random.default_rng(3)), device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pr.prove()
+        torch.cuda.synchronize()
         return t1 - t0, time.perf_counter() - t1
 
     proof()
@@ -134,7 +129,6 @@ def main() -> None:
     wall = (w1 - w0) / 1e9
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "core": args.core,
         "setup_s": setup_s,
         "init_wall_s": init_s,
         "prove_wall_s": prove_s,
