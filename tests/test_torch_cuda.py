@@ -555,6 +555,117 @@ def test_toy_ceremony_on_card_matches_cpu(dev):
     assert M.phase2_verify(sigma, cur, proof2, np.random.default_rng(2))
 
 
+def _toy_sigma(d):
+    from tokamak_zk_evm_tpu_torch.models.setup import Tau, generate_sigma
+    from tokamak_zk_evm_tpu_torch.testing.fixtures import build_fixture
+
+    fx = build_fixture()
+    return generate_sigma(fx.params, Tau.fixed(), fx.library, fx.infos, device=d)
+
+
+def test_sigma_hash_streamed_on_card(dev, monkeypatch):
+    """The transcript hash of a card Sigma, streamed through the pinned
+    buffers in chunks of an odd byte count smaller than a family tensor ==
+    blake2b over each family tensor's host bytes and the host points'
+    strings, written out here, == the CPU Sigma's hash.  Every family byte
+    goes through the buffers, one wait a chunk, with no allocation on the
+    card, and the buffers are kept for the next hash."""
+    import collections
+    import hashlib
+
+    from tokamak_zk_evm_tpu_torch.models import mpc_setup as M
+    from tokamak_zk_evm_tpu_torch.utils import timing
+
+    chunk = 1021
+    monkeypatch.setattr(M, "HASH_CHUNK", chunk)
+    sigma = _toy_sigma(dev)
+    fams = [c for name in M._FAMILIES for c in getattr(sigma.sigma_1, name)]
+    assert max(c.numel() * c.element_size() for c in fams) > 3 * chunk
+    h = hashlib.blake2b(digest_size=64)
+    for c in fams:
+        h.update(c.cpu().numpy().tobytes())
+    s1, s2 = sigma.sigma_1, sigma.sigma_2
+    for p in (s1.x, s1.y, s1.delta, s1.eta, sigma.lagrange_KL):
+        h.update(("inf" if p is None else f"{p[0]:x},{p[1]:x}").encode())
+    for k in ("alpha", "alpha2", "alpha3", "alpha4", "gamma", "delta", "eta", "x", "y"):
+        p = getattr(s2, k)
+        h.update(("inf" if p is None else
+                  f"{p[0][0]:x},{p[0][1]:x},{p[1][0]:x},{p[1][1]:x}").encode())
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with timing.tracing():
+        got = M._sigma_hash(sigma)
+    assert torch.cuda.max_memory_allocated() == held
+    ring = M._RINGS[sigma.sigma_1.xy_powers[0].device]
+    assert got == h.digest() == M._sigma_hash(_toy_sigma("cpu"))
+    assert M._RINGS[sigma.sigma_1.xy_powers[0].device] is ring
+
+    snap = timing.snapshot()
+    totals = collections.Counter()
+    for (_, name, _), k in snap.counts.items():
+        totals[name] += k
+    nbytes = sum(c.numel() * c.element_size() for c in fams)
+    assert totals["p2.hash_staged_bytes"] == totals["p2.hash_bytes"] == nbytes
+    pulls = [e for e in snap.events if e.name == "sync.p2.hash_pull"]
+    assert len(pulls) == sum(-(-c.numel() * c.element_size() // chunk) for c in fams)
+    by_id = {e.id: e for e in snap.events}
+    assert {by_id[e.parent].name for e in pulls} == {"p2.hash"}
+
+
+@pytest.mark.parametrize("jobs", ["together", "apart"])
+def test_contribution_on_card_matches_cpu(dev, jobs, monkeypatch):
+    """A seeded `phase2_contribute` on the card == on the CPU: the proof's
+    JSON, every family and host point.  Its rescaling, launched before the
+    hash, waits for nothing from its first launch to the hash (no
+    synchronizing call under `set_sync_debug_mode("warn")`), with its jobs
+    in one multiplication and, with the table limit lowered, apart as at
+    the benchmark's size; its hash streams in small chunks."""
+    import dataclasses
+    import warnings
+
+    from tokamak_zk_evm_tpu_torch.models import mpc_setup as M
+
+    monkeypatch.setattr(M, "HASH_CHUNK", 4093)
+    if jobs == "apart":
+        monkeypatch.setattr(M, "_WINDOW_POINTS", 1)
+    out = {"cpu": M.phase2_contribute(_toy_sigma("cpu"), np.random.default_rng(7))}
+    sigma = _toy_sigma(dev)
+    real_jac, real_hash = M._jac, M._sigma_hash
+
+    def jac(aff):  # the rescaling's first launches
+        torch.cuda.set_sync_debug_mode("warn")
+        return real_jac(aff)
+
+    def sigma_hash(*a, **kw):
+        torch.cuda.set_sync_debug_mode(0)
+        return real_hash(*a, **kw)
+
+    monkeypatch.setattr(M, "_jac", jac)
+    monkeypatch.setattr(M, "_sigma_hash", sigma_hash)
+    torch.cuda.synchronize()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out[dev] = M.phase2_contribute(sigma, np.random.default_rng(7))
+            waits = len(caught)
+            torch.cuda.set_sync_debug_mode("warn")
+            torch.ones(1, device=dev).item()  # the control: a wait the mode reports
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [i for i, w in enumerate(caught) if "called a synchronizing" in str(w.message)]
+    assert syncs and min(syncs) >= waits, [str(caught[i].message) for i in syncs]
+    (cur, proof), (c_cur, c_proof) = out[dev], out["cpu"]
+    assert proof.to_json() == c_proof.to_json()
+    for name in M._FAMILIES:
+        assert all(torch.equal(a.cpu(), b) for a, b in
+                   zip(getattr(cur.sigma_1, name), getattr(c_cur.sigma_1, name))), name
+    s1, c1 = (dataclasses.replace(x.sigma_1, **{f: None for f in M._FAMILIES})
+              for x in (cur, c_cur))
+    assert s1 == c1 and cur.sigma_2 == c_cur.sigma_2 and cur.lagrange_KL == c_cur.lagrange_KL
+
+
 def crs_entries(n, seed):
     """n rkyv G1 entries as uint8 [96 n]: random canonical x and y; entries
     0 and 7 all zero (infinity), entry 1's x zero, entry 2 all 0xFF (a

@@ -29,10 +29,9 @@ UNDER = {
     "p2.contribute": {None},
     "p2.verify": {None},
     "p2.hash": {"p2.contribute", "p2.verify"},
-    "sync.p2.hash_pull": {"p2.hash"},
     "p2.schnorr": {"p2.contribute", "p2.verify"},
     "p2.rescale": {"p2.contribute"},
-    "sync.p2.rescale": {"p2.rescale"},
+    "sync.p2.rescale": {"p2.contribute"},
     "p2.g2": {"p2.contribute"},
     "p2.equal": {"p2.verify"},
     "sync.p2.equal": {"p2.equal"},
@@ -116,7 +115,7 @@ def test_span_names_and_nesting(runs):
     assert {e.category for e in roots} == {"ceremony"}
     names = collections.Counter(e.name for e in snap.events)
     assert names["p2.hash"] == 2 and names["p2.schnorr"] == 4 and names["p2.g2"] == 1
-    assert names["sync.p2.hash_pull"] == 2 * 3 * len(M._FAMILIES)
+    assert names["sync.p2.hash_pull"] == 0  # the CPU's tensors are hashed where they are
     assert names["p2.rescale"] == names["sync.p2.rescale"] == 1
     assert names["p2.equal"] == names["sync.p2.equal"] == 1
     assert names["p2.rlc"] == 6
@@ -129,6 +128,19 @@ def test_span_names_and_nesting(runs):
                 up = by_id[up.parent]
 
 
+def test_contribution_rescales_while_it_hashes(runs):
+    """The contribution launches its rescaling before its hash and waits for
+    it after its proofs: its steps, in order, and the check's hash first."""
+    snap = runs["snap"]
+    roots = {e.name: e for e in snap.events if not e.parent}
+    steps = {name: sorted((e for e in snap.events if e.parent == root.id), key=lambda e: e.t0)
+             for name, root in roots.items()}
+    assert [e.name for e in steps["p2.contribute"]] == [
+        "p2.rescale", "p2.hash", "p2.schnorr", "sync.p2.rescale", "p2.g2"]
+    assert all(a.t1 <= b.t0 for a, b in zip(steps["p2.contribute"], steps["p2.contribute"][1:]))
+    assert steps["p2.verify"][0].name == "p2.hash"
+
+
 def test_counters_count_what_they_name(runs):
     sigma, snap = runs["sigma"], runs["snap"]
     totals = collections.Counter()
@@ -138,6 +150,7 @@ def test_counters_count_what_they_name(runs):
     fam_bytes = sum(c.numel() * c.element_size() for name in M._FAMILIES
                     for c in getattr(s1, name))
     assert totals["p2.hash_bytes"] == 2 * fam_bytes
+    assert totals["p2.hash_staged_bytes"] == 0  # nothing goes through the card's pinned buffers
     rescaled = [int(getattr(s1, n)[2].numel()) for n in M._FAMILIES[1:]]
     small = [p for row in s1.delta_inv_alphak_xh_tx + [s1.delta_inv_alpha4_xj_tx]
              + s1.delta_inv_alphak_yi_ty for p in row]

@@ -30,17 +30,23 @@ the JAX package.
 
 Phase 2 is traced (`utils/timing`; nothing is recorded while the tracer is
 off): the roots `p2.contribute` and `p2.verify` (category "ceremony"), under
-them `p2.hash` (`_sigma_hash`, each family's pull in `sync.p2.hash_pull`),
-`p2.schnorr` (the three proofs made or checked), `p2.rescale` (the
-contribution's multiplications and to-affine, closed by the wait in
-`sync.p2.rescale`), `p2.g2` (the contribution's G2 multiplications),
-`p2.equal` (the fields a contribution must not touch; the device compare in
-`sync.p2.equal`), `p2.rlc` (a random linear combination's weights and MSMs)
-and `p2.pairing` (every `multi_pairing` of a Schnorr check or of the
-verification; phase 1's Schnorr checks record it too).  Counters:
-`p2.hash_bytes` (family bytes pulled and hashed), `p2.rescaled_points`,
-`p2.rlc_points` (points summed by the combinations' MSMs, both sides) and
-`p2.pairings`.
+them `p2.rescale` (the contribution's multiplications and to-affine,
+launched without a wait before its hash, so the card rescales while the
+host hashes), `p2.hash` (`_sigma_hash`; on a card each chunk's wait for its
+copy to the host in `sync.p2.hash_pull`), `p2.schnorr` (the three proofs
+made or checked), `sync.p2.rescale` (the contribution's wait for the
+rescaling, after its proofs), `p2.g2` (the contribution's G2
+multiplications), `p2.equal` (the fields a contribution must not touch; the
+device compare in `sync.p2.equal`), `p2.rlc` (a random linear
+combination's weights and MSMs) and `p2.pairing` (every `multi_pairing` of
+a Schnorr check or of the verification; phase 1's Schnorr checks record it
+too).  A contribution runs `p2.rescale`, `p2.hash`, `p2.schnorr`,
+`sync.p2.rescale`, `p2.g2`; a check `p2.hash`, `p2.schnorr`, `p2.equal`,
+`p2.pairing`s and `p2.rlc`s.  Counters: `p2.hash_bytes` (family bytes
+hashed), `p2.hash_staged_bytes` (those that came from a card through the
+pinned buffers: all of them on a card, none on the CPU),
+`p2.rescaled_points`, `p2.rlc_points` (points summed by the combinations'
+MSMs, both sides) and `p2.pairings`.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from ..fields import R_MOD, fr_root_of_unity
 from ..host import curve as C
 from ..host.pairing import multi_pairing
 from ..ops import curve as cv
+from ..ops import field as F
 from ..ops import msm as msm_mod
 from ..utils import timing
 from ..utils.device import resolve_device
@@ -168,7 +175,7 @@ def _mul_jac(P, table, sidx=None, pidx=None):
     infinity, which the add passes over).  A window whose digit is the same
     in every scalar adds that row of the table without a gather, or nothing
     for 0, so one shared scalar needs no gather.  No step reads back from
-    the device.  -> jacobian [24, B]."""
+    or waits for the device.  -> jacobian [24, B]."""
     dev = P[0].device
     Bp = P[0].shape[1]
     lanes = next((int(t.shape[0]) for t in (sidx, pidx) if t is not None), Bp)
@@ -198,7 +205,7 @@ def _mul_jac(P, table, sidx=None, pidx=None):
             continue
         if flat is None:
             flat = _cat(*tab)
-            dig = torch.as_tensor(digits, device=dev)
+            dig = F.staged(digits, dev)
             sl = torch.arange(lanes, device=dev) if sidx is None else sidx
             pl = torch.arange(lanes, device=dev) if pidx is None else pidx
         acc = K.g1_add(acc, _take(flat, dig[wi][sl] * Bp + pl))
@@ -973,18 +980,69 @@ _FAMILIES = ("xy_powers", "gamma_inv_o_inst", "eta_inv_li_o_inter_alpha4_kj",
              "delta_inv_li_o_prv")
 
 
-def _sigma_hash(sigma: Sigma) -> bytes:
+HASH_CHUNK = 1 << 26  # bytes of a card tensor copied to the host at a time (64 MiB)
+
+
+_RINGS: dict = {}  # card -> its two pinned HASH_CHUNK-byte host buffers and copy stream
+
+
+def _ring(device):
+    """The card's pinned buffers and copy stream, made on its first hash and
+    kept (made anew should HASH_CHUNK outgrow them)."""
+    ring = _RINGS.get(device)
+    if ring is None or ring[0][0].numel() < HASH_CHUNK:
+        bufs = [torch.empty(HASH_CHUNK, dtype=torch.uint8, pin_memory=True) for _ in range(2)]
+        ring = _RINGS[device] = (bufs, torch.cuda.Stream(device))
+    return ring
+
+
+def _hash_tensors(h, tensors, ready=None) -> None:
+    """`h.update` over each tensor's bytes in order (the tensors all on the
+    CPU or all on one card), with no copy on the host and no allocation on
+    the device.  CPU tensors are hashed from their own buffers.  Card
+    tensors go in HASH_CHUNK-byte chunks through the card's two pinned
+    buffers: each chunk is copied on the copy stream, which first waits on
+    `ready` (an event after which the tensors are final; by default
+    recorded now on the current stream), and hashed in place while the next
+    one copies; a buffer is refilled once its hash has returned."""
+    tensors = [c.detach().contiguous() for c in tensors]
+    for c in tensors:
+        timing.count("p2.hash_bytes", c.numel() * c.element_size())
+    if not tensors or not tensors[0].is_cuda:
+        for c in tensors:
+            h.update(c.numpy())
+        return
+    chunks = [flat[a: a + HASH_CHUNK] for flat in (c.view(torch.uint8).reshape(-1) for c in tensors)
+              for a in range(0, flat.numel(), HASH_CHUNK)]
+    bufs, stream = _ring(tensors[0].device)
+    stream.wait_event(ready or torch.cuda.current_stream(tensors[0].device).record_event())
+    copied = []  # (buffer, event) of each chunk staged
+
+    def stage(k):
+        buf = bufs[k % 2][: chunks[k].numel()]
+        with torch.cuda.stream(stream):
+            buf.copy_(chunks[k], non_blocking=True)
+            copied.append((buf, stream.record_event()))
+
+    stage(0)
+    for k in range(len(chunks)):
+        if k + 1 < len(chunks):
+            stage(k + 1)  # into the other buffer, whose hash has returned
+        buf, done = copied[k]
+        with timing.sync("p2.hash_pull"):
+            done.synchronize()
+        h.update(buf.numpy())
+        timing.count("p2.hash_staged_bytes", buf.numel())
+
+
+def _sigma_hash(sigma: Sigma, ready=None) -> bytes:
     """The JAX package's transcript hash: each family's x, y and inf as the
     bytes of its limb-major uint32 array (the bit pattern of the port's
-    int32 tensors), then the host points' strings."""
+    int32 tensors), then the host points' strings.  `ready`: as in
+    `_hash_tensors`."""
     h = hashlib.blake2b(digest_size=64)
     with timing.span("p2.hash"):
-        for name in _FAMILIES:
-            for c in getattr(sigma.sigma_1, name):
-                with timing.sync("p2.hash_pull"):
-                    raw = np.ascontiguousarray(c.detach().cpu().numpy())
-                timing.count("p2.hash_bytes", raw.nbytes)
-                h.update(raw.tobytes())
+        _hash_tensors(h, [c for name in _FAMILIES for c in getattr(sigma.sigma_1, name)], ready)
         for p in (sigma.sigma_1.x, sigma.sigma_1.y, sigma.sigma_1.delta,
                   sigma.sigma_1.eta, sigma.lagrange_KL):
             h.update(_ser_g1(p).encode())
@@ -1009,7 +1067,26 @@ def _contribute(sigma: Sigma, rng) -> tuple[Sigma, Phase2Proof]:
     gamma_inv = pow(gamma_u, -1, R_MOD)
     delta_inv = pow(delta_u, -1, R_MOD)
     eta_inv = pow(eta_u, -1, R_MOD)
-    th = _sigma_hash(sigma)
+    s1, s2 = sigma.sigma_1, sigma.sigma_2
+    device = s1.gamma_inv_o_inst[0].device
+    # every family and host point times its scalar, in one round, launched
+    # first: it needs nothing from the hash, so the card rescales while the
+    # host hashes, and the launches wait for nothing once the points are up
+    rows = s1.delta_inv_alphak_xh_tx + [s1.delta_inv_alpha4_xj_tx] + s1.delta_inv_alphak_yi_ty
+    pts = [p for row in rows for p in row] + [s1.delta, s1.eta]
+    with timing.span("p2.rescale"):
+        packed = cv.pack_affine(pts, device)
+        ready = torch.cuda.current_stream(device).record_event() if device.type == "cuda" else None
+        jobs = [(_jac(s1.gamma_inv_o_inst), [gamma_inv], None, None),
+                (_jac(s1.eta_inv_li_o_inter_alpha4_kj), [eta_inv], None, None),
+                (_jac(s1.delta_inv_li_o_prv), [delta_inv], None, None),
+                (_jac(packed), [delta_inv] * (len(pts) - 2) + [delta_u, eta_u], None, None)]
+        timing.count("p2.rescaled_points", sum(int(P[0].shape[1]) for P, _, _, _ in jobs))
+        muls = _mul_jobs(jobs)
+        del jobs, packed  # the jacobian copies go as soon as the products are made
+        gi, inter, prv, small = (K.g1_to_affine(P) for P in muls)
+        del muls
+    th = _sigma_hash(sigma, ready)
     with timing.span("p2.schnorr"):
         proof = Phase2Proof(
             contributor_index=0,
@@ -1017,24 +1094,8 @@ def _contribute(sigma: Sigma, rng) -> tuple[Sigma, Phase2Proof]:
             proof_delta=schnorr_prove(delta_u, b"tzk/p2/delta", th, rng),
             proof_eta=schnorr_prove(eta_u, b"tzk/p2/eta", th, rng),
         )
-    s1, s2 = sigma.sigma_1, sigma.sigma_2
-    device = s1.gamma_inv_o_inst[0].device
-    # every family and host point times its scalar, in one round
-    rows = s1.delta_inv_alphak_xh_tx + [s1.delta_inv_alpha4_xj_tx] + s1.delta_inv_alphak_yi_ty
-    pts = [p for row in rows for p in row] + [s1.delta, s1.eta]
-    with timing.span("p2.rescale"):
-        jobs = [(_jac(s1.gamma_inv_o_inst), [gamma_inv], None, None),
-                (_jac(s1.eta_inv_li_o_inter_alpha4_kj), [eta_inv], None, None),
-                (_jac(s1.delta_inv_li_o_prv), [delta_inv], None, None),
-                (_jac(cv.pack_affine(pts, device)),
-                 [delta_inv] * (len(pts) - 2) + [delta_u, eta_u], None, None)]
-        timing.count("p2.rescaled_points", sum(int(P[0].shape[1]) for P, _, _, _ in jobs))
-        muls = _mul_jobs(jobs)
-        del jobs  # the jacobian copies go as soon as the products are made
-        gi, inter, prv, small = (K.g1_to_affine(P) for P in muls)
-        del muls
-        with timing.sync("p2.rescale"):
-            small = cv.unpack_affine(small)
+    with timing.sync("p2.rescale"):
+        small = cv.unpack_affine(small)
     lists, at = [], 0
     for row in rows:
         lists.append(small[at: at + len(row)])

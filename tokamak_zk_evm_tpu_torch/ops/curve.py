@@ -17,15 +17,17 @@ LQ = F.FQ_L
 
 
 def jac_infinity(batch_shape, device):
-    """Jacobian infinity (1, 1, 0) of batch shape `batch_shape` on `device`."""
-    one = F.tensor(F.pack_fq([1]).reshape((LQ,) + (1,) * len(batch_shape)), device)
+    """Jacobian infinity (1, 1, 0) of batch shape `batch_shape` on `device`;
+    waits for nothing queued there."""
+    one = F.staged(F.pack_fq([1]).reshape((LQ,) + (1,) * len(batch_shape)), device)
     one = one.expand((LQ,) + tuple(batch_shape)).contiguous()
     return one, one.clone(), torch.zeros_like(one)
 
 
 def affine_to_jac(x, y, inf):
-    """(x, y, inf mask) -> jacobian; inf has the batch shape."""
-    one = F.tensor(F.pack_fq([1]).reshape((LQ,) + (1,) * (x.dim() - 1)), x.device)
+    """(x, y, inf mask) -> jacobian; inf has the batch shape.  Waits for
+    nothing queued on the device where inf is a tensor there."""
+    one = F.staged(F.pack_fq([1]).reshape((LQ,) + (1,) * (x.dim() - 1)), x.device)
     one = one.expand(x.shape)
     z = torch.where(F.tensor(inf, x.device)[None].bool(), torch.zeros_like(one), one)
     return x, y, z.contiguous()

@@ -112,6 +112,17 @@ def tensor(x, device) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, dtype=np.int32), device=device)
 
 
+def staged(x: np.ndarray, device) -> torch.Tensor:
+    """A host array, its dtype kept, on `device` without waiting for the
+    work queued there: on a card copied from pinned memory on the current
+    stream (PyTorch keeps the pinned block until the copy has run), where
+    `tensor`'s pageable copy waits for the stream to drain."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def fr_one(shape, device) -> torch.Tensor:
     """[16, *shape] Montgomery ones on `device`."""
     one = tensor(pack_fr([1]).reshape((FR_L,) + (1,) * len(shape)), device)
