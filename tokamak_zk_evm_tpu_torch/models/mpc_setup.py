@@ -28,8 +28,37 @@ Only the Schnorr proofs' single points, the phase-1 G2 points, the pairings
 and the point additions of the vanishing families stay on the host, as in
 the JAX package.
 
-Phase 2 is traced (`utils/timing`; nothing is recorded while the tracer is
-off): the roots `p2.contribute` and `p2.verify` (category "ceremony"), under
+Every step is traced (`utils/timing`; nothing is recorded while the tracer
+is off), each under a root of category "ceremony".
+
+Phase 1: the roots `p1.contribute` (`Phase1Accumulator.compute`: `p1.hash`,
+`p1.schnorr`, `p1.mul` -- pack, multiply and unpack every G1 power, its wait
+in `sync.p1.mul` -- and `p1.g2`), `p1.load` (`from_json`, the checked load:
+`p1.parse`, the host parse and on-curve tests before the subgroup test and
+the G2 tests after it, and `p1.subgroup`, r P on the device, its wait in
+`sync.p1.subgroup`) and `p1.verify` (`p1.hash`, `p1.schnorr`, `p1.rlc`, the
+combinations' weights and MSMs, and `p2.pairing`, every pairing of the check
+as in phase 2).  Counters: `p1.multiplied_points` (the G1 powers a
+contribution multiplies) and `p1.checked_points` (the G1 points through the
+r P test).
+
+The circuit-specific prepare: the root `p2.prepare` (`phase2_prepare`), under
+it `prep.xy` (xy_powers and the small products of y, the wait for them in
+`sync.prep.xy`), `prep.lagrange` (the group NTTs), `prep.o_terms` (the R1CS
+nonzeros' host bookkeeping and the Lagrange values of y), `prep.o_points`
+(the nonzeros' products and the sums per wire: the waits `sync.prep.lagrange`,
+`sync.prep.segments` at each level, `sync.prep.o_idx` and `sync.prep.kl`),
+`prep.families` (the user, intermediate and private families and their
+to-affine), `prep.tx` (the host vanishing families and y G2), and last
+`sync.prep.done`, the wait for the families, so the root's seconds are the
+prepare's whole time.  Counters: `prep.mul_lanes` (every lane of every
+multiplication), `prep.full_scalar_lanes` (the lanes whose scalar is a power
+of y, an L_i(y), a user-vector entry, a twiddle or 1/size: all but the R1CS
+coefficients' products), `prep.gathered_windows` (the windows whose add
+gathers each lane's table point), `prep.lagrange_points`,
+`prep.r1cs_nonzeros` and `prep.out_points` (the device families' points).
+
+Phase 2: the roots `p2.contribute` and `p2.verify`, under
 them `p2.rescale` (the contribution's multiplications and to-affine,
 launched without a wait before its hash, so the card rescales while the
 host hashes), `p2.hash` (`_sigma_hash`; on a card each chunk's wait for its
@@ -39,8 +68,8 @@ rescaling, after its proofs), `p2.g2` (the contribution's G2
 multiplications), `p2.equal` (the fields a contribution must not touch; the
 device compare in `sync.p2.equal`), `p2.rlc` (a random linear
 combination's weights and MSMs) and `p2.pairing` (every `multi_pairing` of
-a Schnorr check or of the verification; phase 1's Schnorr checks record it
-too).  A contribution runs `p2.rescale`, `p2.hash`, `p2.schnorr`,
+a Schnorr check or of the verification, phase 1's included).  A
+contribution runs `p2.rescale`, `p2.hash`, `p2.schnorr`,
 `sync.p2.rescale`, `p2.g2`; a check `p2.hash`, `p2.schnorr`, `p2.equal`,
 `p2.pairing`s and `p2.rlc`s.  Counters: `p2.hash_bytes` (family bytes
 hashed), `p2.hash_staged_bytes` (those that came from a card through the
@@ -162,7 +191,12 @@ def _scalar_bits(table) -> np.ndarray:
 _WINDOW_POINTS = 1 << 22  # the most points a window table of 4-bit digits may hold
 
 
-def _mul_jac(P, table, sidx=None, pidx=None):
+def _lanes(P, sidx, pidx) -> int:
+    """Lanes of a `_mul_jac` job: its index vectors' length, else P's points."""
+    return next((int(t.shape[0]) for t in (sidx, pidx) if t is not None), int(P[0].shape[1]))
+
+
+def _mul_jac(P, table, sidx=None, pidx=None, tag=None):
     """Scalar multiples of jacobian device points, one a lane, by fixed
     windows from the top over B13's kernels.  P: [24, Bp]; lane i takes the
     point P[pidx[i]] (P[i] when pidx is None) and the scalar
@@ -175,12 +209,16 @@ def _mul_jac(P, table, sidx=None, pidx=None):
     infinity, which the add passes over).  A window whose digit is the same
     in every scalar adds that row of the table without a gather, or nothing
     for 0, so one shared scalar needs no gather.  No step reads back from
-    or waits for the device.  -> jacobian [24, B]."""
+    or waits for the device.  `tag`, where given, names the counters
+    `<tag>.mul_lanes` (the lanes) and `<tag>.gathered_windows` (the windows
+    whose add gathers).  -> jacobian [24, B]."""
     dev = P[0].device
     Bp = P[0].shape[1]
-    lanes = next((int(t.shape[0]) for t in (sidx, pidx) if t is not None), Bp)
+    lanes = _lanes(P, sidx, pidx)
     if sidx is None and len(table) not in (1, lanes):
         raise ValueError(f"{len(table)} scalars for {lanes} lanes")
+    if tag:
+        timing.count(tag + ".mul_lanes", lanes)
     w = 4 if Bp << 4 <= _WINDOW_POINTS else 1
     bits = _scalar_bits(table).reshape(256 // w, w, len(table))
     digits = (bits * (1 << np.arange(w))[None, :, None]).sum(1)  # [windows, S]
@@ -208,25 +246,27 @@ def _mul_jac(P, table, sidx=None, pidx=None):
             dig = F.staged(digits, dev)
             sl = torch.arange(lanes, device=dev) if sidx is None else sidx
             pl = torch.arange(lanes, device=dev) if pidx is None else pidx
+        if tag:
+            timing.count(tag + ".gathered_windows")
         acc = K.g1_add(acc, _take(flat, dig[wi][sl] * Bp + pl))
     return acc
 
 
-def _mul_jobs(jobs):
+def _mul_jobs(jobs, tag=None):
     """Several `_mul_jac` jobs (P, table, sidx, pidx) as one: their lanes,
     points and scalars side by side, so they share each window's launches
     (few points: the launches are the cost).  Jobs whose points together
     would not fit a 4-bit table run apart, so that a shared scalar still
-    skips its zero bits and gathers nothing.  -> one jacobian result a
-    job."""
+    skips its zero bits and gathers nothing.  `tag`: as in `_mul_jac`.
+    -> one jacobian result a job."""
     if sum(P[0].shape[1] for P, _, _, _ in jobs) << 4 > _WINDOW_POINTS:
-        return [_mul_jac(*job) for job in jobs]
+        return [_mul_jac(*job, tag=tag) for job in jobs]
     dev = jobs[0][0][0].device
     table, sidx, pidx, sizes = [], [], [], []
     poff = 0
     for P, tab, si, pi in jobs:
         Bp = P[0].shape[1]
-        n = next((int(t.shape[0]) for t in (si, pi) if t is not None), Bp)
+        n = _lanes(P, si, pi)
         if si is None:
             si = (torch.arange(n, device=dev) if len(tab) > 1
                   else torch.zeros(n, dtype=torch.int64, device=dev))
@@ -237,7 +277,8 @@ def _mul_jobs(jobs):
         table += list(tab)
         poff += Bp
         sizes.append(n)
-    out = _mul_jac(_cat(*[P for P, _, _, _ in jobs]), table, torch.cat(sidx), torch.cat(pidx))
+    out = _mul_jac(_cat(*[P for P, _, _, _ in jobs]), table, torch.cat(sidx), torch.cat(pidx),
+                   tag)
     return [tuple(c.contiguous() for c in part) for part in zip(*(c.split(sizes, 1) for c in out))]
 
 
@@ -253,10 +294,21 @@ def _g1_mul_many(points, scalars):
 
 
 def _mul_host(points, scalars, device) -> list:
-    """`_g1_mul` over a list of host points (None = infinity), on `device`."""
+    """`_g1_mul` over a list of host points (None = infinity), on `device`;
+    the wait for the products in `sync.p1.mul`."""
     if not points:
         return []
-    return cv.unpack_affine(_g1_mul_many(cv.pack_affine(points, device), scalars))
+    out = _g1_mul_many(cv.pack_affine(points, device), scalars)
+    _wait(out[2], "p1.mul")
+    return cv.unpack_affine(out)
+
+
+def _wait(t: torch.Tensor, site: str) -> None:
+    """The host's wait for the work queued on `t`'s card, as the span
+    `sync.<site>` (on the CPU, an empty one)."""
+    with timing.sync(site):
+        if t.is_cuda:
+            torch.cuda.current_stream(t.device).synchronize()
 
 
 def _cat(*pts):
@@ -267,7 +319,7 @@ def _take(P, idx):
     return tuple(c[:, idx].contiguous() for c in P)
 
 
-def _group_lagrange(groups):
+def _group_lagrange(groups, tag=None):
     """Inverse group NTTs.  groups: (jacobian P [24, T size], size), T
     transforms of one size side by side -> for each, out[t size + k] =
     (1/size) sum_h w^(-kh) P[t size + h], w the size-th root of unity.
@@ -277,7 +329,8 @@ def _group_lagrange(groups):
     multiplication); the second multiplies both halves, a by 1/size and b by
     t_j / size, which folds the scale into it (size 2 scales after its one
     stage).  The multiplications of one stage of every group are one
-    `_mul_jobs` call."""
+    `_mul_jobs` call.  `tag`: as in `_mul_jac`, and each multiplication's
+    lanes also in `<tag>.full_scalar_lanes` (a twiddle or 1/size each)."""
     X = []
     for P, size in groups:
         dev = P[0].device
@@ -304,7 +357,10 @@ def _group_lagrange(groups):
             else:
                 continue
             who.append(g)
-        muls = dict(zip(who, _mul_jobs(jobs))) if jobs else {}
+        if tag:
+            timing.count(tag + ".full_scalar_lanes",
+                         sum(_lanes(P, si, pi) for P, _, si, pi in jobs))
+        muls = dict(zip(who, _mul_jobs(jobs, tag))) if jobs else {}
         for g, (P, size) in enumerate(groups):
             if m <= 2 and g in muls:
                 X[g] = muls.pop(g)
@@ -333,17 +389,21 @@ def _group_lagrange_points(points, size: int):
 def _segment_sums(P, counts):
     """One jacobian sum per segment of consecutive lanes (segment k holds
     counts[k] >= 1 lanes): pairwise levels over the ranks inside each
-    segment, on B13's add."""
+    segment, on B13's add.  The host reads the segments' lengths and each
+    level's lanes, waiting in `sync.prep.segments`."""
     dev = P[0].device
-    counts = torch.as_tensor(counts, dtype=torch.int64, device=dev)
+    with timing.sync("prep.segments"):
+        counts = torch.as_tensor(counts, dtype=torch.int64, device=dev)
+        top = int(counts.max())
+        seg = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev), counts)
     first = torch.cumsum(counts, 0) - counts
-    seg = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev), counts)
     rank = torch.arange(seg.shape[0], device=dev) - first[seg]
     length = counts[seg]
     pts = [c.clone() for c in P]
-    step, top = 1, int(counts.max())
+    step = 1
     while step < top:
-        i = torch.nonzero(((rank % (2 * step)) == 0) & (rank + step < length)).squeeze(1)
+        with timing.sync("prep.segments"):
+            i = torch.nonzero(((rank % (2 * step)) == 0) & (rank + step < length)).squeeze(1)
         s = K.g1_add(_take(pts, i), _take(pts, i + step))
         for c, v in zip(pts, s):
             c[:, i] = v
@@ -362,40 +422,47 @@ def _points_checked(items, device) -> list:
     reduced: the JAX package's `C.g1_scalar_mul_affine(p, R_MOD)` reduces r
     to 0, so its subgroup test passes every point); G2 points on the host,
     the same way.  Raises the JAX package's errors, at the first bad
-    point."""
-    parsed, stop = [], None
-    for kind, s in items:
-        if kind != "g1":
-            parsed.append(None)
-            continue
-        try:
-            parsed.append(_de_g1(s))
-        except (AttributeError, ValueError) as e:  # raised where the JAX package's loop would
-            stop = e
-            break
-    g1 = [i for i, p in enumerate(parsed) if items[i][0] == "g1" and p is not None]
-    on = {i: G1.is_on_curve_affine(parsed[i]) for i in g1}
-    first_off = min((i for i in g1 if not on[i]), default=len(items))
-    cand = [i for i in g1 if i < first_off]  # the points the walk below reaches
+    point.  Spans `p1.parse` (the parse and on-curve tests, then the walk
+    with the G2 tests) and `p1.subgroup` (the device's r P, its wait in
+    `sync.p1.subgroup`); counter `p1.checked_points`."""
+    with timing.span("p1.parse"):
+        parsed, stop = [], None
+        for kind, s in items:
+            if kind != "g1":
+                parsed.append(None)
+                continue
+            try:
+                parsed.append(_de_g1(s))
+            except (AttributeError, ValueError) as e:  # raised where the JAX package's loop would
+                stop = e
+                break
+        g1 = [i for i, p in enumerate(parsed) if items[i][0] == "g1" and p is not None]
+        on = {i: G1.is_on_curve_affine(parsed[i]) for i in g1}
+        first_off = min((i for i in g1 if not on[i]), default=len(items))
+        cand = [i for i in g1 if i < first_off]  # the points the walk below reaches
     sub = {}
     if cand:
-        P = _jac(cv.pack_affine([parsed[i] for i in cand], resolve_device(device)))
-        inf = K._is_zero(_mul_jac(P, [R_MOD])[2]).cpu().tolist()
-        sub = dict(zip(cand, inf))
-    out = []
-    for i, p in enumerate(parsed):
-        kind, s = items[i]
-        if kind == "g2":
-            out.append(_de_g2_checked(s))
-            continue
-        if p is not None and not on[i]:
-            raise CeremonyFormatError(f"G1 point off-curve: {s[:32]}...")
-        if p is not None and not sub[i]:
-            raise CeremonyFormatError(f"G1 point outside r-subgroup: {s[:32]}...")
-        out.append(p)
-    if stop is not None:
-        raise stop
-    return out
+        with timing.span("p1.subgroup"):
+            timing.count("p1.checked_points", len(cand))
+            P = _jac(cv.pack_affine([parsed[i] for i in cand], resolve_device(device)))
+            inf = K._is_zero(_mul_jac(P, [R_MOD])[2])
+            _wait(inf, "p1.subgroup")
+            sub = dict(zip(cand, inf.cpu().tolist()))
+    with timing.span("p1.parse"):
+        out = []
+        for i, p in enumerate(parsed):
+            kind, s = items[i]
+            if kind == "g2":
+                out.append(_de_g2_checked(s))
+                continue
+            if p is not None and not on[i]:
+                raise CeremonyFormatError(f"G1 point off-curve: {s[:32]}...")
+            if p is not None and not sub[i]:
+                raise CeremonyFormatError(f"G1 point outside r-subgroup: {s[:32]}...")
+            out.append(p)
+        if stop is not None:
+            raise stop
+        return out
 
 
 def _r_times_is_infinity(group, p) -> bool:
@@ -601,14 +668,20 @@ class Phase1Accumulator:
     def compute(self, rng, device=None) -> tuple["Phase1Accumulator", Phase1Proof]:
         """One contribution: every G1 power times its update exponent in one
         multiplication on `device` (G2 and the proofs on the host)."""
+        with timing.span("p1.contribute", "ceremony"):
+            return self._compute(rng, resolve_device(device))
+
+    def _compute(self, rng, device) -> tuple["Phase1Accumulator", Phase1Proof]:
         alpha_u = _rand_fr(rng)
         x_u = _rand_fr(rng)
-        th = self.hash()
-        proof = Phase1Proof(
-            contributor_index=self.contributor_index + 1,
-            proof_alpha=schnorr_prove(alpha_u, b"tzk/p1/alpha", th, rng),
-            proof_x=schnorr_prove(x_u, b"tzk/p1/x", th, rng),
-        )
+        with timing.span("p1.hash"):
+            th = self.hash()
+        with timing.span("p1.schnorr"):
+            proof = Phase1Proof(
+                contributor_index=self.contributor_index + 1,
+                proof_alpha=schnorr_prove(alpha_u, b"tzk/p1/alpha", th, rng),
+                proof_x=schnorr_prove(x_u, b"tzk/p1/x", th, rng),
+            )
         xp = 1
         x_pows = []
         for _ in range(max(self.x_len, self.ax_len)):
@@ -623,19 +696,24 @@ class Phase1Accumulator:
         jobs += [[(p, a_pows[k] * x_pows[h] % R_MOD) for h, p in enumerate(row)]
                  for k, row in enumerate(self.alpha_x_g1)]
         flat = [e for job in jobs for e in job]
-        out = _mul_host([p for p, _ in flat], [w for _, w in flat], resolve_device(device))
+        with timing.span("p1.mul"):
+            timing.count("p1.multiplied_points", len(flat))
+            out = _mul_host([p for p, _ in flat], [w for _, w in flat], device)
         parts, at = [], 0
         for job in jobs:
             parts.append(out[at: at + len(job)])
             at += len(job)
+        with timing.span("p1.g2"):
+            x_g2 = _g2_mul(self.x_g2, x_u)
+            alpha_g2 = [_g2_mul(p, w) for p, w in zip(self.alpha_g2, a_pows)]
         acc = Phase1Accumulator(
             contributor_index=self.contributor_index + 1,
             x_len=self.x_len,
             ax_len=self.ax_len,
             x_g1=parts[0],
-            x_g2=_g2_mul(self.x_g2, x_u),
+            x_g2=x_g2,
             alpha_g1=parts[1],
-            alpha_g2=[_g2_mul(p, w) for p, w in zip(self.alpha_g2, a_pows)],
+            alpha_g2=alpha_g2,
             alpha_x_g1=parts[2:],
         )
         return acc, proof
@@ -653,12 +731,16 @@ class Phase1Accumulator:
             from ..utils.rng import secure_rng
 
             rng = secure_rng()
-        device = resolve_device(device)
-        th = self.hash()
-        if not schnorr_verify(proof.proof_alpha, b"tzk/p1/alpha", th):
-            return False
-        if not schnorr_verify(proof.proof_x, b"tzk/p1/x", th):
-            return False
+        with timing.span("p1.verify", "ceremony"):
+            return self._verify(cur, proof, rng, resolve_device(device))
+
+    def _verify(self, cur: "Phase1Accumulator", proof: Phase1Proof, rng, device) -> bool:
+        with timing.span("p1.hash"):
+            th = self.hash()
+        for pf, tag in ((proof.proof_alpha, b"tzk/p1/alpha"), (proof.proof_x, b"tzk/p1/x")):
+            with timing.span("p1.schnorr"):
+                if not schnorr_verify(pf, tag, th):
+                    return False
         # update consistency: e(cur.x_g1[0], G2) == e(prev.x_g1[0], x'_G2)
         pair_checks = [
             (cur.x_g1[0], G2.gen, self.x_g1[0], proof.proof_x.X_g2),
@@ -667,8 +749,7 @@ class Phase1Accumulator:
             (G1.gen, cur.x_g2, proof.proof_x.X_g1, self.x_g2),
         ]
         for a, b, c, d in pair_checks:
-            na = G1.to_affine(G1.neg(G1.from_affine(a)))
-            if not multi_pairing([na, c], [b, d]).is_one():
+            if not _pairing_is_one([_neg(a), c], [b, d]):
                 return False
 
         # power-sequence well-formedness, batched with random weights:
@@ -676,10 +757,11 @@ class Phase1Accumulator:
         def batch_shift_check(points, g2_shift):
             if len(points) < 2:
                 return True
-            rs = _rand_fr_limbs(rng, len(points) - 1, device)
-            hi = _msm(rs, points[1:], device)
-            lo = _msm(rs, points[:-1], device)
-            return multi_pairing([_neg(hi), lo], [G2.gen, g2_shift]).is_one()
+            with timing.span("p1.rlc"):
+                rs = _rand_fr_limbs(rng, len(points) - 1, device)
+                hi = _msm(rs, points[1:], device)
+                lo = _msm(rs, points[:-1], device)
+            return _pairing_is_one([_neg(hi), lo], [G2.gen, g2_shift])
 
         if not batch_shift_check([G1.gen] + cur.x_g1, cur.x_g2):
             return False
@@ -687,17 +769,17 @@ class Phase1Accumulator:
             return False
         # alpha_g2 sequence mirrors alpha_g1: e(alpha_g1[k], G2)==e(G1, alpha_g2[k])
         for k in range(N_ALPHA):
-            na = G1.to_affine(G1.neg(G1.from_affine(cur.alpha_g1[k])))
-            if not multi_pairing([na, G1.gen], [G2.gen, cur.alpha_g2[k]]).is_one():
+            if not _pairing_is_one([_neg(cur.alpha_g1[k]), G1.gen], [G2.gen, cur.alpha_g2[k]]):
                 return False
         # cross terms: e(alpha_x[k][h], G2) == e(x_g1[h], alpha_g2[k]), batched
         for k in range(N_ALPHA):
-            rs = _rand_fr_limbs(rng, cur.ax_len, device)
-            n = min(cur.ax_len, len(cur.alpha_x_g1[k]), len(cur.x_g1[: cur.ax_len]))
-            rs = rs[:, :n].contiguous()
-            cross = _msm(rs, cur.alpha_x_g1[k][:n], device)
-            xs = _msm(rs, cur.x_g1[:n], device)
-            if not multi_pairing([_neg(cross), xs], [G2.gen, cur.alpha_g2[k]]).is_one():
+            with timing.span("p1.rlc"):
+                rs = _rand_fr_limbs(rng, cur.ax_len, device)
+                n = min(cur.ax_len, len(cur.alpha_x_g1[k]), len(cur.x_g1[: cur.ax_len]))
+                rs = rs[:, :n].contiguous()
+                cross = _msm(rs, cur.alpha_x_g1[k][:n], device)
+                xs = _msm(rs, cur.x_g1[:n], device)
+            if not _pairing_is_one([_neg(cross), xs], [G2.gen, cur.alpha_g2[k]]):
                 return False
         return cur.contributor_index == self.contributor_index + 1
 
@@ -722,6 +804,11 @@ class Phase1Accumulator:
     def from_json(d, device=None) -> "Phase1Accumulator":
         """Checked load: every point on its curve and in the r-order
         subgroup (G1's subgroup test at once on `device`)."""
+        with timing.span("p1.load", "ceremony"):
+            return Phase1Accumulator._from_json(d, device)
+
+    @staticmethod
+    def _from_json(d, device) -> "Phase1Accumulator":
         rows = [len(row) for row in d["alpha_x_g1"]]
         items = ([("g1", s) for s in d["x_g1"]] + [("g2", d["x_g2"])]
                  + [("g1", s) for s in d["alpha_g1"]] + [("g2", s) for s in d["alpha_g2"]]
@@ -793,7 +880,8 @@ def _o_points(terms, counts, o_idx):
     parts.append((torch.zeros((LQ, 1), dtype=torch.int32, device=dev),) * 2
                  + (torch.ones(1, dtype=torch.int32, device=dev),))  # index len(counts)
     x, y, inf = _cat(*parts)
-    o_idx = torch.as_tensor(o_idx, device=dev)
+    with timing.sync("prep.o_idx"):
+        o_idx = torch.as_tensor(o_idx, device=dev)
     return x[:, o_idx].contiguous(), y[:, o_idx].contiguous(), inf[o_idx].contiguous()
 
 
@@ -817,9 +905,14 @@ def phase2_prepare(
     families are built on `device` (default the card) and stay there; the
     multiplications run in four `_mul_jobs` rounds (xy_powers with the
     small products of y, the Lagrange stages, the R1CS nonzeros, the three
-    o-families) besides the Lagrange transforms' stages.
+    o-families) besides the Lagrange transforms' stages.  Spanned
+    `p2.prepare`, which ends with the wait for the families.
     """
-    device = resolve_device(device)
+    with timing.span("p2.prepare", "ceremony"):
+        return _prepare(acc, y, params, library, infos, resolve_device(device))
+
+
+def _prepare(acc, y, params, library, infos, device) -> Sigma:
     n, s_max, l, l_free = params.n, params.s_max, params.l, params.l_free
     l_user, l_user_out = params.l_user, params.l_user_out
     m_i, m_d = params.m_i, params.m_D
@@ -830,91 +923,108 @@ def phase2_prepare(
     def arange(*ends):
         return torch.arange(*ends, device=device)
 
-
-    pow1 = [G1.gen] + acc.x_g1  # x^0..x^x_len in the exponent
-    pow1_dev = cv.pack_affine(pow1, device)
-
     # xy_powers[h * 2s_max + i] = y^i * (x^h G1), with delta_inv_alphak_yi_ty
     # (y^i t(y) alpha^k G1, delta = 1) and y G1
-    h_max = max(2 * n, 2 * m_i)
-    rs_y = 2 * s_max
-    y_pows = []
-    yp = 1
-    for _ in range(rs_y):
-        y_pows.append(yp)
-        yp = yp * y % R_MOD
-    t_y = (pow(y, s_max, R_MOD) - 1) % R_MOD
-    small = [acc.alpha_g1[k - 1] for k in range(1, 5) for _ in range(3)] + [G1.gen]
-    small_sc = [(pow(y, i, R_MOD) * t_y) % R_MOD for _ in range(1, 5) for i in range(3)] + [y]
-    xy_lanes = arange(h_max * rs_y)
-    xy, sm = _mul_jobs([(_jac(_slice(pow1_dev, 0, h_max)), y_pows, xy_lanes % rs_y,
-                         xy_lanes // rs_y),
-                        (_jac(cv.pack_affine(small, device)), small_sc, None, None)])
-    del xy_lanes
-    xy_powers = K.g1_to_affine(xy)
-    del xy
-    small = cv.unpack_affine(K.g1_to_affine(sm))
-    dyi = [small[3 * k: 3 * k + 3] for k in range(4)]
-    y_g1 = small[12]
+    with timing.span("prep.xy"):
+        pow1 = [G1.gen] + acc.x_g1  # x^0..x^x_len in the exponent
+        pow1_dev = cv.pack_affine(pow1, device)
+        h_max = max(2 * n, 2 * m_i)
+        rs_y = 2 * s_max
+        y_pows = []
+        yp = 1
+        for _ in range(rs_y):
+            y_pows.append(yp)
+            yp = yp * y % R_MOD
+        t_y = (pow(y, s_max, R_MOD) - 1) % R_MOD
+        small = [acc.alpha_g1[k - 1] for k in range(1, 5) for _ in range(3)] + [G1.gen]
+        small_sc = [(pow(y, i, R_MOD) * t_y) % R_MOD for _ in range(1, 5) for i in range(3)] + [y]
+        timing.count("prep.full_scalar_lanes", h_max * rs_y + len(small))
+        xy_lanes = arange(h_max * rs_y)
+        xy, sm = _mul_jobs([(_jac(_slice(pow1_dev, 0, h_max)), y_pows, xy_lanes % rs_y,
+                             xy_lanes // rs_y),
+                            (_jac(cv.pack_affine(small, device)), small_sc, None, None)], "prep")
+        del xy_lanes
+        xy_powers = K.g1_to_affine(xy)
+        del xy
+        sm = K.g1_to_affine(sm)
+        _wait(sm[2], "prep.xy")
+        small = cv.unpack_affine(sm)
+        dyi = [small[3 * k: 3 * k + 3] for k in range(4)]
+        y_g1 = small[12]
 
     # Lagrange bases in the exponent, the transforms of one size side by side
     def alpha_family(k, size):  # [alpha^(k+1) G1] + alpha^(k+1) x^h G1, first `size`
         return cv.pack_affine(([acc.alpha_g1[k]] + acc.alpha_x_g1[k])[:size], device)
 
-    wanted = {"k": (_slice(pow1_dev, 0, m_i), m_i),                 # K_j(x) G1
-              "m": (_slice(pow1_dev, 0, l_free), l_free),           # M_j(x) G1
-              "k_a4": (alpha_family(3, m_i), m_i)}                  # a^4 K_j(x) G1
-    for k in range(3):
-        wanted[f"lag{k}"] = (alpha_family(k, n), n)
-    sizes = sorted({size for _, size in wanted.values()})
-    names = [[k for k, (_, size) in wanted.items() if size == sz] for sz in sizes]
-    outs = _group_lagrange([(_jac(_cat(*[wanted[k][0] for k in ks])), sz)
-                            for ks, sz in zip(names, sizes)])
-    lagr = {}
-    for ks, sz, out in zip(names, sizes, outs):
-        for t, k in enumerate(ks):
-            lagr[k] = tuple(c[:, t * sz: (t + 1) * sz].contiguous() for c in out)  # jacobian
-    del wanted, outs
+    with timing.span("prep.lagrange"):
+        wanted = {"k": (_slice(pow1_dev, 0, m_i), m_i),                 # K_j(x) G1
+                  "m": (_slice(pow1_dev, 0, l_free), l_free),           # M_j(x) G1
+                  "k_a4": (alpha_family(3, m_i), m_i)}                  # a^4 K_j(x) G1
+        for k in range(3):
+            wanted[f"lag{k}"] = (alpha_family(k, n), n)
+        sizes = sorted({size for _, size in wanted.values()})
+        names = [[k for k, (_, size) in wanted.items() if size == sz] for sz in sizes]
+        groups = [(_jac(_cat(*[wanted[k][0] for k in ks])), sz) for ks, sz in zip(names, sizes)]
+        timing.count("prep.lagrange_points", sum(int(P[0].shape[1]) for P, _ in groups))
+        outs = _group_lagrange(groups, "prep")
+        lagr = {}
+        for ks, sz, out in zip(names, sizes, outs):
+            for t, k in enumerate(ks):
+                lagr[k] = tuple(c[:, t * sz: (t + 1) * sz].contiguous() for c in out)  # jacobian
+        del wanted, groups, outs
 
     # o_vec in the exponent: o_j = sum_k (alpha u + alpha^2 v + alpha^3 w)
     # over the x-Lagrange basis applied to the R1CS columns; lagrange_KL
-    l_vec = gen_evaled_lagrange_bases(y, s_max)  # scalars (y public)
-    base, coeff, counts, o_idx = _o_terms(library, infos, n, m_d)
-    jobs = [(_cat(lagr["lag0"], lagr["lag1"], lagr["lag2"]), coeff,
-             None, torch.as_tensor(base, dtype=torch.int64, device=device)),
-            (_take(lagr["k"], arange(m_i - 1, m_i)), [l_vec[s_max - 1]], None, None)]
-    if not coeff:
-        jobs = jobs[1:]
-    outs = _mul_jobs(jobs)
-    kl = outs[-1]
-    o_jac = _jac(_o_points(outs[0] if coeff else kl, counts, o_idx))
-    lagrange_KL = cv.unpack_affine(K.g1_to_affine(kl))[0]
-    del outs
+    with timing.span("prep.o_terms"):
+        l_vec = gen_evaled_lagrange_bases(y, s_max)  # scalars (y public)
+        base, coeff, counts, o_idx = _o_terms(library, infos, n, m_d)
+        base = torch.as_tensor(base, dtype=torch.int64)
+    with timing.span("prep.o_points"):
+        timing.count("prep.r1cs_nonzeros", len(coeff))
+        timing.count("prep.full_scalar_lanes", 1)  # L_(s_max-1)(y) K_(m_i-1)(x)
+        with timing.sync("prep.lagrange"):
+            base = base.to(device)
+        jobs = [(_cat(lagr["lag0"], lagr["lag1"], lagr["lag2"]), coeff, None, base),
+                (_take(lagr["k"], arange(m_i - 1, m_i)), [l_vec[s_max - 1]], None, None)]
+        if not coeff:
+            jobs = jobs[1:]
+        outs = _mul_jobs(jobs, "prep")
+        kl = outs[-1]
+        o_jac = _jac(_o_points(outs[0] if coeff else kl, counts, o_idx))
+        kl = K.g1_to_affine(kl)
+        _wait(kl[2], "prep.kl")
+        lagrange_KL = cv.unpack_affine(kl)[0]
+        del outs, jobs, base
 
     # gamma_inv_o_inst with gamma = 1 (`group_structures/mod.rs:408-447`):
     # user_vec[j] o_j + M_j(x) (j < l_free);
     # eta = 1: L_i(y) (o_{l+j} + alpha^4 K_j(x)), idx = j*s_max + i;
     # delta = 1: L_i(y) o_j for private wires
-    user_vec = (
-        [l_vec[0]] * l_user_out
-        + [l_vec[1]] * (l_user - l_user_out)
-        + [l_vec[2]] * m_block
-        + [l_vec[3]] * m_function
-    )
-    inter_base = K.g1_add(lagr["k_a4"], _take(o_jac, arange(l, l + m_i)))
-    m_prv = m_d - params.l_D
-    inter_lanes, prv_lanes = arange(m_i * s_max), arange(m_prv * s_max)
-    gi, inter, prv = _mul_jobs([
-        (_take(o_jac, arange(l)), user_vec, None, None),
-        (inter_base, l_vec, inter_lanes % s_max, inter_lanes // s_max),
-        (_take(o_jac, arange(params.l_D, m_d)), l_vec, prv_lanes % s_max, prv_lanes // s_max)])
-    del inter_base, inter_lanes, prv_lanes, o_jac
-    m_pad = _cat(lagr["m"], cv.jac_infinity((l - l_free,), device))
-    gamma_inv_o_inst = K.g1_to_affine(K.g1_add(gi, m_pad))
-    eta_inv_li_o_inter = K.g1_to_affine(inter)
-    del inter
-    delta_inv_li_o_prv = K.g1_to_affine(prv)
-    del prv
+    with timing.span("prep.families"):
+        user_vec = (
+            [l_vec[0]] * l_user_out
+            + [l_vec[1]] * (l_user - l_user_out)
+            + [l_vec[2]] * m_block
+            + [l_vec[3]] * m_function
+        )
+        inter_base = K.g1_add(lagr["k_a4"], _take(o_jac, arange(l, l + m_i)))
+        m_prv = m_d - params.l_D
+        timing.count("prep.full_scalar_lanes", l + (m_i + m_prv) * s_max)
+        inter_lanes, prv_lanes = arange(m_i * s_max), arange(m_prv * s_max)
+        gi, inter, prv = _mul_jobs([
+            (_take(o_jac, arange(l)), user_vec, None, None),
+            (inter_base, l_vec, inter_lanes % s_max, inter_lanes // s_max),
+            (_take(o_jac, arange(params.l_D, m_d)), l_vec, prv_lanes % s_max,
+             prv_lanes // s_max)], "prep")
+        del inter_base, inter_lanes, prv_lanes, o_jac
+        m_pad = _cat(lagr["m"], cv.jac_infinity((l - l_free,), device))
+        gamma_inv_o_inst = K.g1_to_affine(K.g1_add(gi, m_pad))
+        eta_inv_li_o_inter = K.g1_to_affine(inter)
+        del inter
+        delta_inv_li_o_prv = K.g1_to_affine(prv)
+        del prv
+        timing.count("prep.out_points", sum(int(f[2].numel()) for f in (
+            xy_powers, gamma_inv_o_inst, eta_inv_li_o_inter, delta_inv_li_o_prv)))
 
     # vanishing-poly zk families: t_n(x) alpha^k x^h G1 etc. (delta = 1)
     def tx_family(exponent, k_alpha, hs):
@@ -929,8 +1039,11 @@ def phase2_prepare(
             out.append(G1.to_affine(p))
         return out
 
-    t_x_n = [tx_family(n, k, range(3)) for k in (1, 2, 3)]
-    dx4 = tx_family(m_i, 4, range(2))
+    with timing.span("prep.tx"):
+        t_x_n = [tx_family(n, k, range(3)) for k in (1, 2, 3)]
+        dx4 = tx_family(m_i, 4, range(2))
+        y_g2 = _g2_mul(G2.gen, y)
+    _wait(delta_inv_li_o_prv[2], "prep.done")
 
     sigma1 = Sigma1(
         xy_powers=xy_powers,
@@ -956,7 +1069,7 @@ def phase2_prepare(
         delta=G2.gen,
         eta=G2.gen,
         x=acc.x_g2,
-        y=_g2_mul(G2.gen, y),
+        y=y_g2,
     )
     return Sigma(G=G1.gen, H=G2.gen, sigma_1=sigma1, sigma_2=sigma2,
                  lagrange_KL=lagrange_KL)
